@@ -22,35 +22,17 @@
 // 50 MB L2, so the atomics resolve in L2; their throughput, not the
 // 16-24 bytes per point read from device memory, is the expected limit.
 //
-// Rounding: the view divide, the pixel mapping and the depth bucket are
-// computed with IEEE division and without fused multiply-add (the build
-// passes -fmad=false and no --use_fast_math), so every float rounds as the
-// separate PyTorch operations of the plain version do.
+// Rounding: the view divide, the pixel mapping (pixel.cuh) and the depth
+// bucket are computed with IEEE division and without fused multiply-add
+// (the build passes -fmad=false and no --use_fast_math), so every float
+// rounds as the separate PyTorch operations of the plain version do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "pixel.cuh"
 
-__device__ __forceinline__ bool pixel_index(float x, float y, float z,
-                                            int height, int width,
-                                            int64_t* flat) {
-  // divide_no_nan: a point at depth 0 maps to view coordinate 0.
-  const float vx = (z == 0.0f) ? 0.0f : x / z;
-  const float vy = (z == 0.0f) ? 0.0f : y / z;
-  const float fx = (vx + 1.0f) / 2.0f * (float)width;
-  const float fy = (vy + 1.0f) / 2.0f * (float)height;
-  // Truncation toward zero with NaN mapped to 0, bounds tested in float so
-  // out-of-range values never reach an integer conversion.
-  const float tx = isnan(fx) ? 0.0f : truncf(fx);
-  const float ty = isnan(fy) ? 0.0f : truncf(fy);
-  if (!(tx >= 0.0f && tx < (float)width && ty >= 0.0f &&
-        ty < (float)height && z > 0.0f)) {
-    return false;
-  }
-  *flat = (int64_t)ty * width + (int64_t)tx;
-  return true;
-}
+namespace {
 
 __device__ __forceinline__ uint32_t feature_byte(float f) {
   // clip to [0, 255]; fmaxf maps NaN to 0.
@@ -77,7 +59,7 @@ __global__ void splat_fast_kernel(const float* __restrict__ coords,
        i < num_points; i += (int64_t)gridDim.x * blockDim.x) {
     const float z = zs[i];
     int64_t flat;
-    if (!pixel_index(xs[i], ys[i], z, height, width, &flat)) continue;
+    if (!se3ds::pixel_index(xs[i], ys[i], z, height, width, &flat)) continue;
     uint32_t key = 0;
     bool non_void = true;
     for (int c = 0; c < channels; ++c) {
@@ -107,14 +89,7 @@ extern "C" int se3ds_splat_fast(const float* coords, const float* feats,
                                 float depth_scale, float void_value,
                                 float* zbuf, uint32_t* pbuf,
                                 cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (num_points + threads - 1) / threads;
-  // Grid-stride loop: a few waves of blocks cover any cloud size.
-  const int64_t max_blocks = 132 * 16;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
-  dim3 grid((unsigned)blocks, (unsigned)batch);
-  splat_fast_kernel<<<grid, threads, 0, stream>>>(
+  splat_fast_kernel<<<se3ds::point_grid(num_points, batch), 256, 0, stream>>>(
       coords, feats, num_points, coords_bstride, feats_bstride, channels,
       height, width, depth_scale, void_value, zbuf, pbuf);
   return (int)cudaGetLastError();

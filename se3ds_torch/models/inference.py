@@ -19,6 +19,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from se3ds_torch import constants
+from se3ds_torch import device as device_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import model_config
@@ -229,15 +230,7 @@ class SE3DSModel:
     generator: seeds the random weights when `variables` is None and
       `config.ckpt_path` is None (default: seed 0 on `device`).
     """
-    if device is None:
-      if not torch.cuda.is_available():
-        raise RuntimeError("SE3DSModel runs on a CUDA device by default and "
-                           "none is available; pass device='cpu' to run on "
-                           'the CPU.')
-      device = 'cuda'
-    self.device = torch.device(device)
-    if self.device.type == 'cuda' and not torch.cuda.is_available():
-      raise RuntimeError(f'device={device!r} but CUDA is not available.')
+    self.device = device_lib.resolve(device, 'SE3DSModel')
     if config.batch_size < 1:
       raise ValueError(f'batch_size must be >= 1, got {config.batch_size}.')
     if config.memory_mode != 'strict':
@@ -247,7 +240,7 @@ class SE3DSModel:
     if config.splat_mode not in geometry.SPLAT_MODES:
       raise NotImplementedError(
           f'splat_mode={config.splat_mode!r} is not ported yet; use one of '
-          f'{geometry.SPLAT_MODES} (ROADMAP.md lists the rest).')
+          f'{geometry.SPLAT_MODES} (ROADMAP.md item A10 lists the rest).')
     if variables is None and config.ckpt_path is not None:
       raise NotImplementedError(
           f'Restoring the Orbax checkpoint {config.ckpt_path!r} needs JAX; '

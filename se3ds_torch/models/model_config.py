@@ -2,8 +2,9 @@
 `se3ds_tpu.models.model_config`, same fields and defaults).
 
 Fields the port does not serve yet raise from `SE3DSModel.__init__`
-(see ROADMAP.md): `memory_mode='ring'`, splat modes other than
-'fast'/'pallas', and a set `ckpt_path` without `variables=`.
+(see ROADMAP.md): `memory_mode='ring'`, the splat modes 'sorted_packed',
+'fast_exact' and 'dual_sorted', and a set `ckpt_path` without
+`variables=`.
 """
 
 import dataclasses
@@ -32,7 +33,9 @@ class SE3DSConfig:
   compute_dtype: str = 'float32'  # 'bfloat16' for faster inference
   # Guidance-splat winner selection. The port serves 'fast' (packed
   # depth-bucket | feature-byte winner, exact depth) and 'pallas' (the
-  # same semantics; both run the CUDA kernel on the card).
+  # same semantics; both run the 'fast' CUDA kernel on the card), and the
+  # exact modes 'scatter', 'sorted' and 'pallas_exact' (min depth, 0.1 m
+  # window, per-channel max; all run the exact CUDA kernel on the card).
   splat_mode: str = 'fast'
   # The port always folds spectral norms into the kernels at load (it
   # serves eval only); the flag is kept for config compatibility.

@@ -2,8 +2,9 @@
 
 Each `csrc/*.cu` file exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, loaded with `ctypes`. The library name
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Libraries go to `build/se3ds_torch/` at
+carries a hash of the source, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source or header rebuilds and an unchanged one is
+reused. Libraries go to `build/se3ds_torch/` at
 the root of the checkout (listed in .gitignore). `build()` starts one
 `nvcc` per source, all at once, and waits for all of them.
 """
@@ -49,6 +50,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
   """Where the library built from csrc/<name> lives."""
   digest = hashlib.sha1((CSRC_DIR / name).read_bytes())
+  for header in sorted(CSRC_DIR.glob('*.cuh')):
+    digest.update(header.read_bytes())
   digest.update(' '.join(NVCC_FLAGS).encode())
   return BUILD_DIR / f'lib{Path(name).stem}_{digest.hexdigest()[:16]}.so'
 

@@ -1,7 +1,8 @@
 """Equirectangular panorama geometry (port of `se3ds_tpu.ops.geometry`).
 
-The serving subset: point-cloud unprojection at `size_mult=1`, the
-equirectangular view coordinates, the splat dispatch and the pole mask.
+The serving and eval subset: point-cloud unprojection at `size_mult=1`,
+the equirectangular view coordinates, the splat dispatch, the pole mask
+and the pole crop.
 Conventions follow the JAX package: world z up toward the pano's north
 pole, heading measured from the x-axis toward the y-axis.
 """
@@ -16,7 +17,12 @@ import torch
 
 from se3ds_torch.ops import splat
 
-SPLAT_MODES = ('fast', 'pallas')
+# The exact modes are bit-identical in the JAX package ('scatter' is its
+# definition); the port runs all three as `splat.project_to_feat`. 'fast'
+# and 'pallas' share the packed-key semantics. 'sorted_packed',
+# 'fast_exact' and 'dual_sorted' are not ported yet.
+EXACT_SPLAT_MODES = ('scatter', 'sorted', 'pallas_exact')
+SPLAT_MODES = EXACT_SPLAT_MODES + ('fast', 'pallas')
 
 
 def equirect_view_coords(xyz1: torch.Tensor) -> torch.Tensor:
@@ -63,24 +69,24 @@ def project_feats_to_equirectangular(
     height, width: Output pano size in pixels.
     void_class: Feature value marking an empty point.
     depth_scale: Maximum depth in metres.
-    splat_mode: 'fast' or 'pallas' (the same semantics; both run the CUDA
-      kernel on the card). The JAX default (None) is the exact 'scatter'
-      mode, which is not ported yet.
+    splat_mode: None (the JAX default) or one of the exact modes
+      'scatter', 'sorted' and 'pallas_exact' (on the card the exact CUDA
+      kernel), or 'fast' or 'pallas' (on the card the 'fast' CUDA kernel).
 
   Returns:
     reprojected_depth: (N, H, W) depth in [0, 1].
     reprojected_feats: (N, H, W[, C]) feature image.
   """
+  if splat_mode is None:
+    splat_mode = 'scatter'
   if splat_mode not in SPLAT_MODES:
     raise NotImplementedError(
-        f'splat_mode={splat_mode!r} is not ported yet: the exact modes '
-        "('scatter', 'pallas_exact') come with the eval slice (ROADMAP.md "
-        "B2 and A8), 'sorted', 'sorted_packed' and 'fast_exact' with item "
-        'A10.')
-  proj_xyz1 = equirect_view_coords(xyz1)
-  return splat.project_to_feat_fast(
-      proj_xyz1, feats.to(xyz1.dtype), height, width,
-      depth_scale=depth_scale, input_void_class=void_class)
+        f'splat_mode={splat_mode!r} is not ported yet (ROADMAP.md item '
+        f'A10); the port runs {SPLAT_MODES}.')
+  splat_fn = (splat.project_to_feat if splat_mode in EXACT_SPLAT_MODES
+              else splat.project_to_feat_fast)
+  return splat_fn(equirect_view_coords(xyz1), feats.to(xyz1.dtype), height,
+                  width, depth_scale=depth_scale, input_void_class=void_class)
 
 
 def _linspace_f32(start: float, stop: float, num: int,
@@ -184,3 +190,20 @@ def mask_pano(pano: torch.Tensor, proportion: float = 0.125,
   mask = (rows >= masked_height) & (rows <= height - masked_height)
   mask = mask.to(pano.dtype)[None, :, None, None]
   return mask * pano + (1 - mask) * masked_region_value
+
+
+def crop_pano(pano: torch.Tensor, proportion: float = 0.125,
+              resize_to_original: bool = False) -> torch.Tensor:
+  """Crops away the top/bottom `proportion` rows of (N, H, W, C) or
+  (H, W, C) panos (JAX `geometry.crop_pano`)."""
+  if pano.dim() not in (3, 4):
+    raise ValueError(f'pano should be of shape (N, H, W, C), got '
+                     f'{tuple(pano.shape)} instead.')
+  if resize_to_original:
+    raise NotImplementedError(
+        'crop_pano(resize_to_original=True) resizes with ops/image.py, '
+        'which is not ported yet (ROADMAP.md item A10).')
+  row_axis = pano.dim() - 3
+  height = pano.shape[row_axis]
+  masked_height = int(height * proportion)
+  return pano.narrow(row_axis, masked_height, height - 2 * masked_height)

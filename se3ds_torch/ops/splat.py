@@ -1,13 +1,17 @@
-"""Z-buffer point splatting (port of `se3ds_tpu.ops.splat`, 'fast' mode).
+"""Z-buffer point splatting (port of `se3ds_tpu.ops.splat`, the exact
+'scatter' mode and the 'fast' mode).
 
 Semantics follow the JAX package: points map to pixels by a perspective
 divide and truncation toward zero; invalid points (out of bounds, depth
-<= 0, or any feature channel equal to the void value) are dropped. The
-'fast' splat keeps, per pixel, the exact f32 minimum depth and the
-largest u32 key `(255 - 8-bit depth bucket) << 24 | feature bytes`.
+<= 0, or any feature channel equal to the void value) are dropped. Both
+modes keep the exact f32 minimum depth per pixel. The exact splat then
+takes, per channel, the maximum feature over the points whose raw depth
+is within 0.1 m of that minimum; the 'fast' splat keeps the largest u32
+key `(255 - 8-bit depth bucket) << 24 | feature bytes`.
 
-On CUDA tensors the splat runs the hand-written kernel
-(`splat_cuda.splat_fast`); on CPU tensors its plain PyTorch version.
+On CUDA tensors each splat runs its hand-written kernel
+(`splat_cuda.splat_exact`, `splat_cuda.splat_fast`); on CPU tensors its
+plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -15,6 +19,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+# Points deeper than (min depth + tolerance) at a pixel are left out of
+# the exact splat's feature max; the sum is taken in float32, as JAX adds
+# its weak-typed 0.1 to a float32 depth.
+DEPTH_COLLISION_TOLERANCE = 0.1
 
 
 def _normalize_view_coords(coords: torch.Tensor
@@ -92,6 +101,59 @@ def packed_keys(depth: torch.Tensor, feats: torch.Tensor,
   return key
 
 
+def project_to_feat(
+    transformed_coords: torch.Tensor,
+    feats: torch.Tensor,
+    height: int,
+    width: int,
+    depth_scale: float,
+    input_void_class: float,
+    output_void_class: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Exact z-buffer splat (JAX `splat.project_to_feat`, 'scatter' mode).
+
+  Per pixel: the minimum depth of the valid points (clipped to
+  depth_scale), then the per-channel maximum of the features of the
+  points whose RAW depth is < that minimum + 0.1 (in float32), taken
+  against output_void_class. Channels mix: points (10, 200, 7) and
+  (200, 10, 7) in one window give (200, 200, 7). Any number of channels
+  and any finite float features.
+
+  Args:
+    transformed_coords: (N, 4, M) of (x, y, z, 1); z is depth.
+    feats: (N, M) or (N, M, C) feature values.
+    height, width: Output image size in pixels.
+    depth_scale: Maximum depth in metres; deeper values are clipped.
+    input_void_class: Feature value marking an invalid input point.
+    output_void_class: Fill value for pixels receiving no points.
+
+  Returns:
+    projected_depth: (N, H, W) depth in [0, 1].
+    projected_feat: (N, H, W) or (N, H, W, C) feature image.
+  """
+  from se3ds_torch.ops import splat_cuda  # it imports this module
+
+  if feats.dim() not in (2, 3):
+    raise ValueError(
+        f'feats should have shape (N, M) or (N, M, C), got {feats.shape}')
+  is_scalar_feat = feats.dim() == 2
+  if is_scalar_feat:
+    feats = feats[..., None]
+  dtype = transformed_coords.dtype
+  batch_size, channels = transformed_coords.shape[0], feats.shape[-1]
+  zbuf, fbuf = splat_cuda.splat_exact(
+      transformed_coords, feats.to(dtype), height, width, depth_scale,
+      input_void_class, output_void_class)
+  # A 0-dim divisor divides exactly on the card too (see packed_keys).
+  scale = torch.full((), depth_scale, dtype=zbuf.dtype, device=zbuf.device)
+  projected_depth = (torch.clamp(zbuf, 0.0, depth_scale) / scale).reshape(
+      batch_size, height, width).to(dtype)
+  projected_feat = fbuf.to(dtype).reshape(batch_size, height, width, channels)
+  if is_scalar_feat:
+    projected_feat = projected_feat[..., 0]
+  return projected_depth, projected_feat
+
+
 def project_to_feat_fast(
     transformed_coords: torch.Tensor,
     feats: torch.Tensor,
@@ -132,8 +194,8 @@ def project_to_feat_fast(
   if channels > 3:
     raise NotImplementedError(
         'project_to_feat_fast packs at most 3 feature bytes; the JAX '
-        'package falls back to the exact splat, which is not ported yet '
-        '(ROADMAP.md, item A10).')
+        'package falls back to the exact splat here, the port raises: '
+        'call project_to_feat.')
   dtype = transformed_coords.dtype
   feats = feats.to(dtype)
   batch_size = transformed_coords.shape[0]

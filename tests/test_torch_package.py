@@ -39,7 +39,8 @@ def test_port_imports_no_jax(path):
 def test_port_files_found():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
   assert {'se3ds_torch/ops/splat_cuda.py', 'se3ds_torch/models/inference.py',
-          'chip_smoke.py'} <= names
+          'se3ds_torch/eval/metrics.py', 'se3ds_torch/eval/inception.py',
+          'se3ds_torch/eval/fid.py', 'chip_smoke.py'} <= names
 
 
 def test_kernel_build_flags():
@@ -49,7 +50,7 @@ def test_kernel_build_flags():
   assert 'arch=compute_90a,code=sm_90a' in flags
   assert '-fmad=false' in flags
   assert 'fast_math' not in flags and 'prec-div=false' not in flags
-  assert cuda_build.sources() == ['splat.cu']
+  assert cuda_build.sources() == ['splat.cu', 'splat_exact.cu']
 
 
 def test_library_name_follows_the_source():
@@ -57,3 +58,13 @@ def test_library_name_follows_the_source():
   assert path.parent == cuda_build.BUILD_DIR
   assert path.name.startswith('libsplat_') and path.suffix == '.so'
   assert path == cuda_build.library_path('splat.cu')
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+  """An edit to a csrc/*.cuh header renames (so rebuilds) every library."""
+  for name in ('a.cu', 'pixel.cuh'):
+    (tmp_path / name).write_text(name)
+  monkeypatch.setattr(cuda_build, 'CSRC_DIR', tmp_path)
+  before = cuda_build.library_path('a.cu')
+  (tmp_path / 'pixel.cuh').write_text('edited')
+  assert cuda_build.library_path('a.cu') != before

@@ -206,7 +206,8 @@ def test_no_card_needs_an_explicit_cpu_device(monkeypatch):
 
 def test_unported_options_raise():
   base = config_t.get_test_config()
-  for overrides in (dict(memory_mode='ring'), dict(splat_mode='scatter'),
+  for overrides in (dict(memory_mode='ring'),
+                    dict(splat_mode='sorted_packed'),
                     dict(ckpt_path='some/checkpoint')):
     with pytest.raises(NotImplementedError):
       inference_t.SE3DSModel(dataclasses.replace(base, **overrides),

@@ -214,7 +214,7 @@ def test_mask_pano_matches_jax():
 def test_unported_splat_modes_raise():
   xyz = torch.zeros((1, 4, 8))
   feats = torch.zeros((1, 8, 3))
-  for mode in (None, 'scatter', 'pallas_exact', 'sorted', 'fast_exact'):
+  for mode in ('sorted_packed', 'fast_exact', 'dual_sorted'):
     with pytest.raises(NotImplementedError):
       geometry_t.project_feats_to_equirectangular(feats, xyz, 8, 16, -1.0,
                                                   20.0, splat_mode=mode)
