@@ -5,34 +5,44 @@ NVIDIA card.
 
 Phases, in order; any failure raises and the process exits non-zero:
   1. Device and build: the card's name and power limit, then every CUDA
-     source of se3ds_torch built with nvcc (one process per source).
-  2. Kernel against its plain version: the CUDA splat and its PyTorch
-     version on the same card tensors, at full width (512x1024 pixels,
-     ~1.05M points with 1 channel, ~0.79M points with 3 channels, batch
-     1 and 2) and on edge cases. Results must be torch.equal. Times the
-     kernel and the plain version.
+     source of se3ds_torch built with nvcc (one process per source), with
+     each kernel's registers and shared memory from ptxas.
+  2. The 'fast' splat against its plain version: the main path's form
+     (world points and a camera offset, the view coordinates computed in
+     the kernel, then the resolve) against the plain path (translate,
+     `equirect_view_coords`, plain splat), and the kernel's view-coordinate
+     form against `splat_fast_plain`, on edge cases and at full width
+     (512x1024 pixels, ~1.05M points with 1 channel and no depth, ~0.79M
+     points with 3 channels, batch 1 and 2). Results must be torch.equal.
+     Times the point pass, the resolve, the whole stage and the plain
+     version.
   3. Small input against the CPU path: the same weights and pano through
-     SE3DSModel on the card and on the CPU (plain versions).
+     SE3DSModel on the card and on the CPU (plain versions); then the splat
+     stage alone on one memory, card against CPU: proj_depth bit-equal on
+     the pixels whose points did not move (nor take a radius that the
+     CPU's sqrt rounds off).
   4. Full-width serving: SE3DSModel at 1024x512, gen_dims=128, ResNet-101,
      bf16, from a seeded generator; add_to_memory, three
      add_preds_to_memory=True calls and one predict_trajectory of T=3.
      Checks shapes, dtypes, finite values, proj_mask coverage in (0, 1)
-     and exactly 2 'fast' splat launches per served frame (and no exact
-     one), then holds the kernel against its plain version on the main
-     path's own memory.
-  5. Exact kernel against its plain version: the exact CUDA splat (two
-     passes) and its PyTorch version, torch.equal on depth and features,
-     on edge cases (with output void 0 and -1, negative features, points
-     beyond depth_scale) and on collision-heavy full-width clouds (~0.5M,
-     1.05M and 2.1M points, C=3 and C=1, batch 1 and 8). Times the
-     kernel, the wrapper and the plain version.
+     and exactly 2 'fast' point-pass launches per served frame (and no
+     exact one), then holds the stage against its plain version on the
+     main path's own memory and times it (point passes, resolves, whole
+     stage, plain).
+  5. The exact splat against its plain version: both forms, torch.equal
+     on depth and features, on edge cases (with output void 0 and -1,
+     negative features, points beyond depth_scale) and on collision-heavy
+     full-width clouds (~0.5M, 1.05M and 2.1M points, C=3 and C=1, batch 1
+     and 8, batch slices of a larger memory). Times the cooperative
+     launch, the resolve, the whole stage, the plain version, and the
+     'fast' point pass on the same points as the cost of one read.
   6. Full-width FID eval: ResNetGenerator(gen_dims=128, ResNet-101) in
      bf16 from a seeded generator, 1024x512, batch 8, T=4, the exact
      splat: rollout_generated (shapes, finite values, proj_mask coverage,
-     exactly 2 exact launches per frame and no 'fast' one), then
+     exactly 1 exact launch per frame and no 'fast' one), then
      EvalMetric(eval_num=8, batch_size=8, avg_num=1).calculate_fid_score
-     (finite FID, RMSE and IS); the kernel against its plain version on
-     the rollout's own splat inputs; the test config's rollout on the
+     (finite FID, RMSE and IS); the stage against its plain version on
+     the rollout's own inputs, timed; the test config's rollout on the
      card against the CPU.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -48,9 +58,11 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 H, W = 512, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+DEPTH_SCALE = 20.0
 SPLAT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:87'
 EXACT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:204'
 EVAL_BATCH, EVAL_FRAMES = 8, 4  # one card's share of highres test_batch_size
@@ -76,7 +88,8 @@ def sync():
 
 
 def time_ms(fn, reps, warmup=2):
-  """Median over `reps` runs of fn's device time, in ms (CUDA events)."""
+  """Median over `reps` runs of the device time between CUDA events
+  recorded around one call of fn, in ms (host gaps included)."""
   for _ in range(warmup):
     fn()
   times = []
@@ -91,14 +104,31 @@ def time_ms(fn, reps, warmup=2):
   return statistics.median(times)
 
 
+def device_ms(fn, reps=20):
+  """Device time per call of fn in ms: the kernels and memsets it runs,
+  summed by the profiler, without the host's gaps between them."""
+  fn()
+  sync()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+      fn()
+    sync()
+  total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  if not total_us:
+    raise AssertionError('the profiler recorded no device time')
+  return total_us / reps / 1e3
+
+
 def equal_or_raise(name, kernel_outs, plain_outs):
   """Max |d| between a kernel's outputs and its plain version's; raises
-  unless every pair is torch.equal."""
+  unless every pair is torch.equal. A None kernel output (a depth not
+  asked for) is skipped."""
   sync()
-  err = max((float((k - p).abs().max())
-             for k, p in zip(kernel_outs, plain_outs) if k.numel()),
+  pairs = [(k, p) for k, p in zip(kernel_outs, plain_outs) if k is not None]
+  err = max((float((k - p).abs().max()) for k, p in pairs if k.numel()),
             default=0.0)
-  if not all(torch.equal(k, p) for k, p in zip(kernel_outs, plain_outs)):
+  if not all(torch.equal(k, p) for k, p in pairs):
     raise AssertionError(f'{name}: kernel != plain version (max |d| {err})')
   return err
 
@@ -120,10 +150,12 @@ def synthetic_pano(height, seed):
           depth.astype(np.float32)[None])
 
 
-def view_clouds(batch, frames, seed, device, compact=True):
-  """Full-width splat inputs made by the port's own geometry: `frames`
-  panos per batch element unprojected and seen from a shifted pose. With
-  `compact` the RGB cloud keeps only the rows mask_pano leaves."""
+def world_clouds(batch, frames, seed, device, compact=True):
+  """Full-width world-point memories made by the port's own geometry:
+  `frames` panos per batch element unprojected at shifted poses, and the
+  (batch, 4) camera offset they are seen from. With `compact` the RGB
+  cloud keeps only the rows mask_pano leaves. Returns ([(xyz, feats,
+  void) for the semantic and the RGB cloud], offset)."""
   from se3ds_torch import constants
   from se3ds_torch.models import inference
   from se3ds_torch.ops import geometry
@@ -154,11 +186,12 @@ def view_clouds(batch, frames, seed, device, compact=True):
     sem_f.append(torch.cat(parts[1], 1))
     rgb_xyz.append(torch.cat(parts[2], -1))
     rgb_f.append(torch.cat(parts[3], 1))
-  target = torch.tensor([[0.2, -0.1, 0.05, 0.0]], device=device)
-  view = lambda xyz: geometry.equirect_view_coords(
-      torch.cat(xyz) - target[..., None])
-  return [(view(sem_xyz), torch.cat(sem_f), float(constants.INVALID_SEM_VALUE)),
-          (view(rgb_xyz), torch.cat(rgb_f), float(constants.INVALID_RGB_VALUE))]
+  offset = torch.tensor([[0.2, -0.1, 0.05, 0.0]], device=device).expand(
+      batch, 4).contiguous()
+  return [(torch.cat(sem_xyz), torch.cat(sem_f),
+           float(constants.INVALID_SEM_VALUE)),
+          (torch.cat(rgb_xyz), torch.cat(rgb_f),
+           float(constants.INVALID_RGB_VALUE))], offset
 
 
 def edge_clouds(device):
@@ -192,60 +225,120 @@ def edge_clouds(device):
           for k, (c, f) in cases.items()}
 
 
-def splat_bytes(coords, feats):
-  """Bytes the splat must move: x, y, z and the features of each point
-  read once, the two 4-byte per-pixel buffers written once."""
-  batch, _, m = coords.shape
-  return batch * m * (12 + 4 * feats.shape[-1]) + batch * H * W * 8
+def stage_bytes(xyz, feats, need_depth, height=H, width=W):
+  """Bytes a splat stage must move: x, y, z and the features of each
+  point read once, the returned depth (if asked for) and feature planes
+  written once."""
+  batch, _, m = xyz.shape
+  channels = feats.shape[-1]
+  return batch * m * (12 + 4 * channels) + batch * height * width * (
+      4 * need_depth + 4 * channels)
 
 
-def phase_kernel_parity(splat_cuda, power):
-  log('== phase 2: CUDA splat against its plain version ==')
+def fast_stage(geometry, xyz, feats, offset, void, need_depth,
+               height=H, width=W):
+  """The 'fast' stage, world memory to images, and its plain version."""
+  args = (feats, xyz, offset, height, width, void, DEPTH_SCALE, 'fast')
+  return (lambda: geometry.project_memory_equirect(*args,
+                                                   need_depth=need_depth),
+          lambda: geometry.project_memory_equirect_plain(*args))
+
+
+def fast_timings(splat_cuda, geometry, xyz, feats, offset, void, need_depth):
+  """Device ms of the point pass and of the resolve, the whole stage
+  (events, and device ms), the plain version (events) and the bound, at
+  full width."""
+  kernel, plain = fast_stage(geometry, xyz, feats, offset, void,
+                             need_depth)
+  words = lambda: splat_cuda.fast_words(xyz, feats, H, W, DEPTH_SCALE, void,
+                                        offset=offset, need_depth=need_depth)
+  done = words()
+  return {
+      'point': device_ms(words),
+      'resolve': device_ms(lambda: splat_cuda.fast_resolve(
+          done, feats.shape[-1], DEPTH_SCALE, 0.0)),
+      'stage': time_ms(kernel, reps=50),
+      'stage_device': device_ms(kernel),
+      'plain': time_ms(plain, reps=10),
+      'bound': stage_bytes(xyz, feats, need_depth) / HBM_BYTES_PER_S * 1e3}
+
+
+def log_timings(name, t, power):
+  log(f'  {name}: point pass {t["point"]:.4f} ms, resolve '
+      f'{t["resolve"]:.4f} ms (device), whole stage {t["stage"]:.4f} ms '
+      f'(events; {t["stage_device"]:.4f} ms device), plain {t["plain"]:.4f} '
+      f'ms, bound {t["bound"]:.4f} ms ({power})')
+
+
+def phase_kernel_parity(splat_cuda, geometry, power):
+  log('== phase 2: the fast CUDA splat against its plain version ==')
   device = torch.device('cuda')
   max_err = 0.0
+  offset = torch.tensor([[0.3, -0.2, 0.1, 0.0]], device=device)
 
-  def compare(name, coords, feats, void, height=H, width=W):
+  def compare_buffers(name, coords, feats, void, height=H, width=W):
     nonlocal max_err
-    plain = splat_cuda.splat_fast_plain(coords, feats, height, width, 20.0,
-                                        void)
+    plain = splat_cuda.splat_fast_plain(coords, feats, height, width,
+                                        DEPTH_SCALE, void)
     max_err = max(max_err, equal_or_raise(name, splat_cuda.splat_fast(
-        coords, feats, height, width, 20.0, void), plain))
-    log(f'  {name}: equal ({coords.shape[-1]} points, '
+        coords, feats, height, width, DEPTH_SCALE, void), plain))
+    log(f'  {name}, view coordinates: equal ({coords.shape[-1]} points, '
         f'{int((plain[1] != 0).sum())} pixels hit)')
 
-  for name, (coords, feats) in edge_clouds(device).items():
-    compare(name, coords, feats, -1.0, 64, 128)
+  def compare_stage(name, xyz, feats, offset, void, need_depth, height=H,
+                    width=W):
+    nonlocal max_err
+    kernel, plain = fast_stage(geometry, xyz, feats, offset,
+                               void, need_depth, height, width)
+    want = plain()
+    max_err = max(max_err, equal_or_raise(name, kernel(), want))
+    log(f'  {name}, world points (depth {need_depth}): equal '
+        f'({xyz.shape[-1]} points)')
 
-  timings = {}
+  for name, (coords, feats) in edge_clouds(device).items():
+    compare_buffers(name, coords, feats, -1.0, 64, 128)
+    for need_depth in (True, False):
+      compare_stage(name, coords, feats, offset, -1.0, need_depth, 64, 128)
+
+  frame = {}
   for batch in (1, 2):
-    clouds = view_clouds(batch, frames=2, seed=batch, device=device)
-    for (coords, feats, void), kind in zip(clouds, ('semantic', 'rgb')):
+    clouds, target = world_clouds(batch, frames=2, seed=batch, device=device)
+    for (xyz, feats, void), kind, need_depth in zip(
+        clouds, ('semantic', 'rgb'), (False, True)):
       name = f'{kind} C={feats.shape[-1]} batch {batch}'
-      compare(name, coords, feats, void)
-      # The kernel alone, into buffers initialised once (min and max are
-      # idempotent), and the wrapper the main path calls, which also
-      # fills both buffers and widens the keys to int64.
-      coords_k, feats_k = splat_cuda.check_inputs(coords, feats, H, W)
-      zbuf = torch.full((batch, H * W), 20.0, device=device)
-      pbuf = torch.zeros((batch, H * W), dtype=torch.int32, device=device)
-      kernel_ms = time_ms(lambda: splat_cuda.launch_splat_fast(
-          coords_k, feats_k, H, W, 20.0, void, zbuf, pbuf), reps=50)
-      wrapper_ms = time_ms(lambda: splat_cuda.splat_fast(
-          coords, feats, H, W, 20.0, void), reps=50)
-      plain_ms = time_ms(lambda: splat_cuda.splat_fast_plain(
-          coords, feats, H, W, 20.0, void), reps=10)
-      bound_ms = splat_bytes(coords, feats) / HBM_BYTES_PER_S * 1e3
-      timings[(kind, batch)] = (kernel_ms, plain_ms, bound_ms)
-      # The kernel reads each input once: its traffic is the bound's bytes.
-      log(f'  {name}: {coords.shape[-1]} points, kernel {kernel_ms:.4f} ms, '
-          f'wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'bound {bound_ms:.4f} ms; its traffic at '
-          f'{splat_bytes(coords, feats) / kernel_ms / 1e9:.3f} TB/s '
-          f'({power})')
-  # One served frame splats the semantic and the RGB cloud once each.
-  frame = [sum(timings[(k, 1)][i] for k in ('semantic', 'rgb'))
-           for i in range(3)]
-  return max_err, frame
+      compare_stage(name, xyz, feats, target, void, need_depth)
+      compare_buffers(name, geometry.equirect_view_coords(
+          xyz - target[..., None]), feats, void)
+      if batch == 1:
+        t = fast_timings(splat_cuda, geometry, xyz, feats, target, void,
+                         need_depth)
+        log_timings(f'{name}, {xyz.shape[-1]} points', t, power)
+        frame = {k: frame.get(k, 0.0) + v for k, v in t.items()}
+  log_timings('per served frame (semantic + RGB, batch 1)', frame, power)
+  return max_err
+
+
+def pixels_apart(geometry, splat, xyz, feats, position, height, width):
+  """Two (B, H, W) bool masks for the same RGB points on the card and on
+  the CPU: the pixels a point enters or leaves between the two devices'
+  view coordinates (their trigonometry differs by ULPs), and the pixels
+  of the points whose radius the CPU's torch.sqrt does not round
+  correctly (numpy's float32 sqrt, as the card's, does)."""
+  offset = torch.cat([position, torch.zeros((1, 1))], 1)
+  flats = [splat.pixel_coords(geometry.equirect_view_coords(
+      x - offset.to(x.device)[..., None]), f, height, width, -1.0)[0].cpu()
+           for x, f in ((xyz, feats), (xyz.cpu(), feats.cpu()))]
+  rel = xyz.cpu() - offset[..., None]
+  sq = rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1] + rel[:, 2] * rel[:, 2]
+  sqrt_off = torch.sqrt(sq) != torch.from_numpy(np.sqrt(sq.numpy()))
+  masks = []
+  for points, sources in ((flats[0] != flats[1], flats), (sqrt_off,
+                                                          flats[1:])):
+    mask = torch.zeros((xyz.shape[0], height * width + 1), dtype=torch.bool)
+    for flat in sources:
+      mask.scatter_(1, torch.where(points, flat, height * width), True)
+    masks.append(mask[:, :-1].reshape(-1, height, width))
+  return masks
 
 
 def phase_small_vs_cpu(inference, model_config):
@@ -265,12 +358,56 @@ def phase_small_vs_cpu(inference, model_config):
     moved = ((got.proj_rgb.cpu() != ref.proj_rgb).any(-1)
              | (got.proj_mask.cpu() != ref.proj_mask)[..., 0])
     rgb_err = (got.pred_rgb.cpu().int() - ref.pred_rgb.int()).abs()
-    log(f'  guidance pixels moved: {int(moved.sum())} of {moved.numel()}, '
-        f'pred_rgb max |d| {int(rgb_err.max())}')
+    depth_off = int((got.proj_depth.cpu() != ref.proj_depth)[~moved].sum())
+    log(f'  served frame: guidance pixels moved {int(moved.sum())} of '
+        f'{moved.numel()}, proj_depth off the CPU\'s bits on {depth_off} '
+        f'unmoved pixels (the memories differ: unprojection trig), pred_rgb '
+        f'max |d| {int(rgb_err.max())}')
     # CPU and card trig differ by ULPs (points may cross a pixel edge),
     # and TF32 is off, so the generator floats agree to ~1e-6.
     if moved.float().mean() > 0.005 or rgb_err.max() > 1:
       raise AssertionError('card and CPU serving disagree')
+
+  # The splat stage alone on one memory (the card's, copied to the CPU):
+  # the depth is a square root and a divide, so it is bit-equal on every
+  # pixel that no point entered or left, but for the CPU's torch.sqrt,
+  # which is not always correctly rounded.
+  from se3ds_torch.ops import geometry
+  from se3ds_torch.ops import splat
+  from se3ds_torch.ops import splat_cuda
+  live = gpu._live_memory(gpu.get_memory_state(), gpu._frames_written,
+                          gpu._sem_frames_live())
+  host = live._replace(**{k: v.cpu() for k, v in live._asdict().items()
+                          if k != 'cursor'})
+  size = (cfg.image_height, 2 * cfg.image_height, cfg.depth_scale)
+  for position in ([[0.3, 0.05, 0.0]], [[-0.2, 0.4, 0.1]]):
+    position = torch.tensor(position)
+    ref = inference.memory_project(host, position, *size)
+    got = inference.memory_project(live, position.cuda(), *size)
+    moved = ((got[2].cpu() != ref[2]).any(-1) | (got[0].cpu() != ref[0])[
+        ..., 0] | (got[3].cpu() != ref[3])[..., 0])
+    crossed, sqrt_off = pixels_apart(geometry, splat, live.rgb_coords,
+                                     live.rgb, position, *size[:2])
+    depth_off = int((got[1].cpu() != ref[1])[~(moved | crossed | sqrt_off)]
+                    .sum())
+    # What the repaired divide changed: the same z-buffer divided by a
+    # Python scalar (a multiply by the reciprocal on the card).
+    zbuf, _ = splat_cuda.splat_fast(
+        geometry.equirect_view_coords(live.rgb_coords - torch.cat(
+            [position, torch.zeros((1, 1))], 1).cuda()[..., None]),
+        live.rgb, size[0], size[1], size[2], -1.0)
+    clipped = torch.clamp(zbuf, 0.0, size[2])
+    scalar_off = int((clipped / size[2] != clipped / torch.full(
+        (), size[2], device='cuda')).sum())
+    log(f'  splat stage at {position.tolist()[0]} on one memory: guidance '
+        f'pixels moved {int(moved.sum())} of {moved.numel()}, pixels an RGB '
+        f'point entered or left {int(crossed.sum())}, pixels of a point '
+        f'whose radius the CPU\'s sqrt rounds off {int(sqrt_off.sum())}, '
+        f'proj_depth off the CPU\'s bits on {depth_off} other pixels; a '
+        f'Python-scalar divide would put {scalar_off} of {zbuf.numel()} '
+        f'depth pixels off')
+    if (moved | crossed).float().mean() > 0.005 or depth_off:
+      raise AssertionError('card and CPU splat stages disagree')
 
 
 def phase_serving(inference, model_config, splat_cuda, power):
@@ -311,9 +448,9 @@ def phase_serving(inference, model_config, splat_cuda, power):
   launches = splat_cuda.LAUNCHES
   frames = 6
   if launches != 2 * frames or splat_cuda.EXACT_LAUNCHES:
-    raise AssertionError(f'{launches} splat launches for {frames} frames; '
-                         'expected 2 per frame (and no exact one, got '
-                         f'{splat_cuda.EXACT_LAUNCHES})')
+    raise AssertionError(f'{launches} point-pass launches for {frames} '
+                         'frames; expected 2 per frame (and no exact one, '
+                         f'got {splat_cuda.EXACT_LAUNCHES})')
 
   for out in outs + [traj]:
     lead = (3,) if out is traj else ()
@@ -343,127 +480,143 @@ def phase_serving(inference, model_config, splat_cuda, power):
       f'{frames / serve_ms * 1e3:.3f}; over the {frames - 1} after the first '
       f'(which includes cuDNN set-up): {(frames - 1) / warm_ms * 1e3:.3f} '
       f'({power})')
-  log(f'  splat launches on the main path: {launches} ({frames} frames)')
+  log(f'  splat point-pass launches on the main path: {launches} ({frames} '
+      'frames)')
 
-  # The kernel against its plain version on the main path's own inputs:
+  # The stage against its plain version on the main path's own inputs:
   # the memory as the next frame would splat it.
   mem = model._live_memory(model.get_memory_state(copy=False),
                            model._frames_written, model._sem_frames_live())
   from se3ds_torch import constants
   from se3ds_torch.ops import geometry
   pos = torch.tensor([[0.5, 0.0, 0.0, 0.0]], device='cuda')
-  for name, xyz, feats, void in (
-      ('semantic', mem.coords, mem.feats, constants.INVALID_SEM_VALUE),
-      ('rgb', mem.rgb_coords, mem.rgb, constants.INVALID_RGB_VALUE)):
-    coords = geometry.equirect_view_coords(xyz - pos[..., None])
-    equal_or_raise(f'main-path {name} splat',
-                   splat_cuda.splat_fast(coords, feats, H, W, 20.0,
-                                         float(void)),
-                   splat_cuda.splat_fast_plain(coords, feats, H, W, 20.0,
-                                               float(void)))
-    log(f'  main-path {name} splat ({coords.shape[-1]} points): kernel == '
-        'plain')
-  return launches
+  max_err, frame = 0.0, {}
+  for name, xyz, feats, void, need_depth in (
+      ('semantic', mem.coords, mem.feats, constants.INVALID_SEM_VALUE, False),
+      ('rgb', mem.rgb_coords, mem.rgb, constants.INVALID_RGB_VALUE, True)):
+    kernel, plain = fast_stage(geometry, xyz, feats, pos, float(void),
+                               need_depth)
+    max_err = max(max_err, equal_or_raise(f'main-path {name} splat',
+                                          kernel(), plain()))
+    t = fast_timings(splat_cuda, geometry, xyz, feats, pos, float(void),
+                     need_depth)
+    log_timings(f'main-path {name} splat ({xyz.shape[-1]} points, kernel '
+                '== plain)', t, power)
+    frame = {k: frame.get(k, 0.0) + v for k, v in t.items()}
+  log_timings('main-path splat per served frame', frame, power)
+  return launches, max_err, frame
 
 
-def exact_bytes(coords, feats, height=H, width=W):
-  """Bytes the exact splat must move: x, y, z and the features of each
-  point read once, the depth and the C feature planes written once."""
-  batch, _, m = coords.shape
-  channels = feats.shape[-1]
-  return batch * m * (12 + 4 * channels) + batch * height * width * (
-      4 + 4 * channels)
+def exact_stage(geometry, xyz, feats, offset, void, out_void, height=H,
+                width=W, depth_scale=DEPTH_SCALE):
+  """The exact stage, world memory to images, and its plain version."""
+  from se3ds_torch.ops import splat
+  kernel = lambda: splat.splat_images(
+      True, xyz, feats, height, width, depth_scale, void, out_void,
+      offset=offset)
+  plain = lambda: splat.project_to_feat_plain(
+      geometry.equirect_view_coords(xyz - offset[..., None]), feats, height,
+      width, depth_scale, void, out_void)
+  return kernel, plain
 
 
-def exact_two_pass_bytes(coords, feats):
-  """Bytes the two-pass kernel itself moves: pass 1 reads x, y, z and the
-  features of each point, pass 2 reads them again with the point's
-  z-buffer entry; both buffers are written once."""
-  batch, _, m = coords.shape
-  channels = feats.shape[-1]
-  return batch * m * (28 + 8 * channels) + batch * H * W * (4 + 4 * channels)
+def exact_timings(splat_cuda, geometry, xyz, feats, offset, void, out_void):
+  """Device ms of the cooperative launch and of the resolve, the whole
+  stage (events, and device ms), the plain version (events), the bound,
+  and the device ms of the 'fast' point pass on the same points (one
+  read of them and one atomic per point), at full width."""
+  kernel, plain = exact_stage(geometry, xyz, feats, offset, void, out_void)
+  words = lambda: splat_cuda.exact_words(xyz, feats, H, W, DEPTH_SCALE, void,
+                                         offset=offset)
+  done = words()
+  return {
+      'point': device_ms(words),
+      'resolve': device_ms(lambda: splat_cuda.exact_resolve(
+          done, DEPTH_SCALE, out_void)),
+      'stage': time_ms(kernel, reps=20),
+      'stage_device': device_ms(kernel),
+      'plain': time_ms(plain, reps=3),
+      'bound': stage_bytes(xyz, feats, True) / HBM_BYTES_PER_S * 1e3,
+      'one_read': device_ms(lambda: splat_cuda.fast_words(
+          xyz, feats, H, W, DEPTH_SCALE, void, offset=offset))}
 
 
-def exact_timings(splat_cuda, coords, feats, void, out_void, reps=20):
-  """(kernel ms, wrapper ms, plain ms, bound ms) of the exact splat at
-  full width. The kernel runs both passes into buffers filled once (min
-  and max are idempotent); the wrapper also fills them and decodes."""
-  coords_k, feats_k = splat_cuda.check_inputs(coords, feats, H, W,
-                                              max_channels=None)
-  batch, channels = coords.shape[0], feats.shape[-1]
-  zbuf = torch.full((batch, H * W), 20.0, device=coords.device)
-  fbuf = torch.full((batch, H * W, channels), splat_cuda.order_key(out_void),
-                    dtype=torch.int32, device=coords.device)
-  kernel_ms = time_ms(lambda: splat_cuda.launch_splat_exact(
-      coords_k, feats_k, H, W, void, zbuf, fbuf), reps=reps)
-  wrapper_ms = time_ms(lambda: splat_cuda.splat_exact(
-      coords, feats, H, W, 20.0, void, out_void), reps=reps)
-  plain_ms = time_ms(lambda: splat_cuda.splat_exact_plain(
-      coords, feats, H, W, 20.0, void, out_void), reps=max(3, reps // 5))
-  bound_ms = exact_bytes(coords, feats) / HBM_BYTES_PER_S * 1e3
-  return kernel_ms, wrapper_ms, plain_ms, bound_ms
+def log_exact_timings(name, t, power):
+  log_timings(name, t, power)
+  log(f'    the one launch against the fast point pass over the same '
+      f'points: {t["point"]:.4f} / {t["one_read"]:.4f} ms = '
+      f'{t["point"] / t["one_read"]:.2f} reads of the points')
 
 
-def compare_exact(splat_cuda, name, coords, feats, void, out_void,
-                  height=H, width=W, depth_scale=20.0):
-  """Kernel and plain version on the same card tensors; returns max |d|
-  and raises unless both outputs are torch.equal."""
-  plain = splat_cuda.splat_exact_plain(coords, feats, height, width,
-                                       depth_scale, void, out_void)
-  err = equal_or_raise(name, splat_cuda.splat_exact(
-      coords, feats, height, width, depth_scale, void, out_void), plain)
-  hit = int((plain[1] != out_void).any(-1).sum())
-  log(f'  {name}: equal ({coords.shape[0]}x{coords.shape[-1]} points, '
-      f'{hit} pixels hit)')
-  return err
-
-
-def phase_exact_parity(splat_cuda, power):
-  log('== phase 5: exact CUDA splat against its plain version ==')
+def phase_exact_parity(splat_cuda, geometry, power):
+  log('== phase 5: the exact CUDA splat against its plain version ==')
   device = torch.device('cuda')
   max_err = 0.0
+  offset = torch.tensor([[0.3, -0.2, 0.1, 0.0]], device=device)
+
+  def compare_buffers(name, coords, feats, void, out_void, height=H,
+                      width=W, depth_scale=DEPTH_SCALE):
+    nonlocal max_err
+    plain = splat_cuda.splat_exact_plain(coords, feats, height, width,
+                                         depth_scale, void, out_void)
+    max_err = max(max_err, equal_or_raise(name, splat_cuda.splat_exact(
+        coords, feats, height, width, depth_scale, void, out_void), plain))
+    hit = int((plain[1] != out_void).any(-1).sum())
+    log(f'  {name}, view coordinates: equal ({coords.shape[0]}x'
+        f'{coords.shape[-1]} points, {hit} pixels hit)')
+
+  def compare_stage(name, xyz, feats, offset, void, out_void, **kw):
+    nonlocal max_err
+    kernel, plain = exact_stage(geometry, xyz, feats, offset, void, out_void,
+                                **kw)
+    max_err = max(max_err, equal_or_raise(name, kernel(), plain()))
+    log(f'  {name}, world points: equal ({xyz.shape[0]}x{xyz.shape[-1]} '
+        'points)')
+
   edges = edge_clouds(device)
   for name, (coords, feats) in edges.items():
     for out_void in (0.0, -1.0):
-      max_err = max(max_err, compare_exact(
-          splat_cuda, f'{name}, output void {out_void}', coords, feats,
-          -1.0, out_void, 64, 128))
+      compare_buffers(f'{name}, output void {out_void}', coords, feats, -1.0,
+                      out_void, 64, 128)
+      compare_stage(f'{name}, output void {out_void}', coords, feats, offset,
+                    -1.0, out_void, height=64, width=128)
   base, feats = edges['void features']
   rs = np.random.RandomState(8)
   negative = torch.from_numpy(
       rs.randint(-40, 40, tuple(feats.shape)) / 4.0).float().to(device)
-  max_err = max(max_err, compare_exact(
-      splat_cuda, 'negative non-void features', base, negative, -1.0, -1.0,
-      32, 64))
+  compare_buffers('negative non-void features', base, negative, -1.0, -1.0,
+                  32, 64)
   # Depths around depth_scale: the minimum clips to 20, the window tests
   # the raw depth against 20.1.
   depth = torch.from_numpy(rs.uniform(19.8, 20.6, base.shape[-1])).float()
   beyond = base * (depth.to(device) / base[:, 2])
   beyond[:, 3] = 1.0
-  max_err = max(max_err, compare_exact(
-      splat_cuda, 'beyond depth_scale', beyond, feats, -1.0, -1.0, 32, 64))
+  compare_buffers('beyond depth_scale', beyond, feats, -1.0, -1.0, 32, 64)
+  compare_stage('beyond depth_scale', beyond, feats,
+                torch.zeros((1, 4), device=device), -1.0, -1.0, height=32,
+                width=64)
 
   # Collision-heavy full-width clouds: up to 4 frames per batch element
-  # (the RGB cloud uncompacted, as the rollout memory holds it).
-  clouds = view_clouds(8, frames=4, seed=11, device=device, compact=False)
-  for coords, feats, void in clouds:
+  # (the RGB cloud uncompacted, as the rollout memory holds it), taken as
+  # slices of the whole memory (row stride != points).
+  clouds, target = world_clouds(8, frames=4, seed=11, device=device,
+                                compact=False)
+  for xyz, feats, void in clouds:
     for batch in (1, 8):
       for frames in (1, 2, 4):
         extent = frames * H * W
-        max_err = max(max_err, compare_exact(
-            splat_cuda, f'C={feats.shape[-1]} batch {batch} {frames} '
-            'frames', coords[:batch, :, :extent], feats[:batch, :extent],
-            void, -1.0))
-  coords, feats, void = clouds[1]
+        name = f'C={feats.shape[-1]} batch {batch} {frames} frames'
+        compare_stage(name, xyz[:batch, :, :extent], feats[:batch, :extent],
+                      target[:batch], void, -1.0)
+    compare_buffers(f'C={feats.shape[-1]} batch 8 4 frames',
+                    geometry.equirect_view_coords(xyz - target[..., None]),
+                    feats, void, -1.0)
+  xyz, feats, void = clouds[1]
   for frames in (1, 2, 4):
     extent = frames * H * W
-    kernel_ms, wrapper_ms, plain_ms, bound_ms = exact_timings(
-        splat_cuda, coords[:, :, :extent], feats[:, :extent], void, -1.0)
-    traffic = exact_two_pass_bytes(coords[:, :, :extent], feats[:, :extent])
-    log(f'  C=3 batch 8, {extent} points each: kernel {kernel_ms:.4f} ms, '
-        f'wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-        f'{bound_ms:.4f} ms; its own two-pass traffic {traffic / 1e6:.1f} MB '
-        f'at {traffic / kernel_ms / 1e9:.3f} TB/s ({power})')
+    t = exact_timings(splat_cuda, geometry, xyz[:, :, :extent],
+                      feats[:, :extent], target, void, -1.0)
+    log_exact_timings(f'C=3 batch 8, {extent} points each', t, power)
   return max_err
 
 
@@ -517,21 +670,22 @@ def phase_eval(inference, model_config, splat_cuda, power):
   depth_scale = constants.DEPTH_SCALE
 
   # Warm-up rollout (cuDNN picks its algorithms), which also records the
-  # splat inputs of each frame; then the timed one, through the real
-  # wrapper with nothing recorded.
+  # splat stage's inputs of each frame; then the timed one, through the
+  # real stage with nothing recorded.
+  from se3ds_torch.ops import geometry
   recorded = []
-  kernel_wrapper = splat_cuda.splat_exact
+  stage = geometry.project_memory_equirect
 
-  def recording(coords, feats, *args):
-    recorded.append((coords.clone(), feats.clone()))
-    return kernel_wrapper(coords, feats, *args)
+  def recording(feats, xyz, offset, *args, **kwargs):
+    recorded.append((feats.clone(), xyz.clone(), offset.clone()))
+    return stage(feats, xyz, offset, *args, **kwargs)
 
-  splat_cuda.splat_exact = recording
+  geometry.project_memory_equirect = recording
   try:
     metrics.rollout_generated(generator, videos[0], EVAL_FRAMES, depth_scale,
                               device='cuda')
   finally:
-    splat_cuda.splat_exact = kernel_wrapper
+    geometry.project_memory_equirect = stage
   sync()
   splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
   t0 = time.perf_counter()
@@ -540,9 +694,9 @@ def phase_eval(inference, model_config, splat_cuda, power):
   sync()
   rollout_s = time.perf_counter() - t0
   rollout_launches = splat_cuda.EXACT_LAUNCHES
-  if rollout_launches != 2 * EVAL_FRAMES or splat_cuda.LAUNCHES:
+  if rollout_launches != EVAL_FRAMES or splat_cuda.LAUNCHES:
     raise AssertionError(f'{rollout_launches} exact launches for '
-                         f'{EVAL_FRAMES} frames (expected 2 per frame), '
+                         f'{EVAL_FRAMES} frames (expected 1 per frame), '
                          f'{splat_cuda.LAUNCHES} fast ones (expected 0)')
   for i in range(EVAL_FRAMES):
     frame, mask = generated[i], aux['proj_mask'][i]
@@ -574,8 +728,8 @@ def phase_eval(inference, model_config, splat_cuda, power):
       generator)
   eval_s = time.perf_counter() - t0
   eval_launches = splat_cuda.EXACT_LAUNCHES
-  # eval_num // batch_size + 1 = 2 rollouts.
-  if eval_launches != 2 * 2 * EVAL_FRAMES or splat_cuda.LAUNCHES:
+  # eval_num // batch_size + 1 = 2 rollouts, one exact launch per frame.
+  if eval_launches != 2 * EVAL_FRAMES or splat_cuda.LAUNCHES:
     raise AssertionError(f'EvalMetric: {eval_launches} exact launches, '
                          f'{splat_cuda.LAUNCHES} fast ones')
   for name, values in (('FID', fid), ('RMSE', eval_rmse),
@@ -597,17 +751,21 @@ def phase_eval(inference, model_config, splat_cuda, power):
   log(f'  host FID (2048-d, {EVAL_BATCH} samples, scipy sqrtm): '
       f'{time.perf_counter() - t0:.2f} s')
 
-  # The kernel on the rollout's own splat inputs, frame by frame.
+  # The stage on the rollout's own inputs, frame by frame.
   max_err, frame_times = 0.0, []
   void = float(constants.INVALID_RGB_VALUE)
-  for i, (coords, feats) in enumerate(recorded):
-    max_err = max(max_err, compare_exact(
-        splat_cuda, f'rollout frame {i}', coords, feats, void, 0.0))
-    frame_times.append(exact_timings(splat_cuda, coords, feats, void, 0.0))
-  per_frame = [statistics.mean(t[i] for t in frame_times) for i in range(4)]
-  log(f'  exact splat per rollout frame (mean of {len(recorded)}): kernel '
-      f'{per_frame[0]:.4f} ms, wrapper {per_frame[1]:.4f} ms, plain '
-      f'{per_frame[2]:.4f} ms, bound {per_frame[3]:.4f} ms ({power})')
+  for i, (feats, xyz, offset) in enumerate(recorded):
+    kernel, plain = exact_stage(geometry, xyz, feats, offset, void, 0.0)
+    max_err = max(max_err, equal_or_raise(f'rollout frame {i}', kernel(),
+                                          plain()))
+    t = exact_timings(splat_cuda, geometry, xyz, feats, offset, void, 0.0)
+    log_exact_timings(f'rollout frame {i} ({EVAL_BATCH}x{xyz.shape[-1]} '
+                      'points, kernel == plain)', t, power)
+    frame_times.append(t)
+  per_frame = {k: statistics.mean(t[k] for t in frame_times)
+               for k in frame_times[0]}
+  log_timings(f'exact splat per rollout frame (mean of {len(recorded)})',
+              per_frame, power)
   return rollout_launches, max_err, per_frame
 
 
@@ -645,6 +803,7 @@ def main():
   from se3ds_torch.models import inference
   from se3ds_torch.models import model_config
   from se3ds_torch.ops import cuda_build
+  from se3ds_torch.ops import geometry
   from se3ds_torch.ops import splat_cuda
 
   log('== phase 1: device and build ==')
@@ -657,37 +816,47 @@ def main():
   log(f'built {sorted(paths)} in {time.perf_counter() - t0:.2f} s')
   for name, path in paths.items():
     info = path.with_name(path.name + '.log')
-    if info.exists():
-      log(f'  {name}: {info.read_text().strip()}')
+    if info.exists():  # each kernel's registers and shared memory
+      log(f'  {name}:')
+      for line in info.read_text().splitlines():
+        if 'entry function' in line or 'Used' in line:
+          log(f'    {line.strip()}')
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
 
-  max_err, (ms, plain_ms, bound_ms) = phase_kernel_parity(splat_cuda, power)
+  max_err = phase_kernel_parity(splat_cuda, geometry, power)
   phase_small_vs_cpu(inference, model_config)
-  launches = phase_serving(inference, model_config, splat_cuda, power)
-  exact_err = phase_exact_parity(splat_cuda, power)
-  exact_launches, rollout_err, exact_times = phase_eval(
+  launches, main_err, fast = phase_serving(inference, model_config,
+                                           splat_cuda, power)
+  exact_err = phase_exact_parity(splat_cuda, geometry, power)
+  exact_launches, rollout_err, exact = phase_eval(
       inference, model_config, splat_cuda, power)
   phase_eval_small_vs_cpu(inference, model_config)
-  log(f'splat per served frame (semantic + RGB, 1024x512): kernel {ms:.4f} '
-      f'ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms')
-  log(f'exact splat per rollout frame (batch {EVAL_BATCH}, C=3, 1024x512): '
-      f'kernel {exact_times[0]:.4f} ms, plain {exact_times[2]:.4f} ms, '
-      f'bound {exact_times[3]:.4f} ms')
+  # A kernel's time: its point pass(es) and its resolve, on the device.
+  fast_ms = fast['point'] + fast['resolve']
+  exact_ms = exact['point'] + exact['resolve']
+  log(f'splat_fast per served frame (semantic + RGB, 1024x512, main path): '
+      f'point passes {fast["point"]:.4f} ms + resolves {fast["resolve"]:.4f}'
+      f' ms, whole stage {fast["stage"]:.4f} ms, plain {fast["plain"]:.4f} '
+      f'ms, bound {fast["bound"]:.4f} ms')
+  log(f'splat_exact per rollout frame (batch {EVAL_BATCH}, C=3, 1024x512): '
+      f'launch {exact["point"]:.4f} ms + resolve {exact["resolve"]:.4f} ms,'
+      f' whole stage {exact["stage"]:.4f} ms, plain {exact["plain"]:.4f} ms,'
+      f' bound {exact["bound"]:.4f} ms')
   log(f'chip_smoke took {time.perf_counter() - START:.1f} s')
   log(power)
 
   log(json.dumps({'kernels': [{
       'name': 'splat_fast', 'route': 'cuda',
       'source': 'se3ds_torch/csrc/splat.cu', 'replaces': SPLAT_REPLACES,
-      'launches': launches, 'max_abs_err': max_err, 'ms': ms,
-      'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': 'bytes',
-      'library_ms': None}, {
+      'launches': launches, 'max_abs_err': max(max_err, main_err),
+      'ms': fast_ms, 'plain_ms': fast['plain'], 'bound_ms': fast['bound'],
+      'bound_by': 'bytes', 'library_ms': None}, {
           'name': 'splat_exact', 'route': 'cuda',
           'source': 'se3ds_torch/csrc/splat_exact.cu',
           'replaces': EXACT_REPLACES, 'launches': exact_launches,
-          'max_abs_err': max(exact_err, rollout_err), 'ms': exact_times[0],
-          'plain_ms': exact_times[2], 'bound_ms': exact_times[3],
+          'max_abs_err': max(exact_err, rollout_err), 'ms': exact_ms,
+          'plain_ms': exact['plain'], 'bound_ms': exact['bound'],
           'bound_by': 'bytes', 'library_ms': None}]}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

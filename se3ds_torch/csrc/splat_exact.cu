@@ -5,38 +5,50 @@
 // clipped depth) so that one streaming pass over VMEM-resident rows saw
 // each pixel's final minimum before its window test. On this card the
 // function is two order-free passes over the unsorted points, one thread
-// per point, each computing the point's pixel and validity inline
-// (pixel.cuh, and no channel equal to the void value):
-//   pass 1  zbuf[pixel] = min over valid points of the raw f32 depth
-//           (initialised to depth_scale, so it is the min of the clipped
-//           depth). Valid depth is > 0, so the int order of the f32 bits
-//           equals the float order and atomicMin on int works.
-//   pass 2  runs after pass 1 has finished (the next launch on the same
-//           stream). A valid point whose RAW depth is < zbuf[pixel] + 0.1f
-//           (DEPTH_COLLISION_TOLERANCE, added in f32 and never fused) folds
-//           each channel into fbuf[pixel][c] with atomicMax. Features are
-//           any float (the void value is -1), so the max runs on an
-//           order-preserving u32 encoding of the f32 bits; fbuf is
-//           initialised to the encoding of output_void_class and decoded
-//           by the caller.
-// Min and max do not depend on the order of the atomics, so the result is
-// bit for bit that of the plain version (splat_cuda.splat_exact_plain).
+// per point, each running the prelude of pixel.cuh inline (world points
+// minus the camera offset through the equirect view on the main path, so
+// no translated or view tensor is written; a point's pixel is recomputed
+// in pass 2, 12 bytes of rereading against 16 for writing and reading a
+// cached index). Each pixel owns 1 + C adjacent u32 words, all set to
+// 0xFFFFFFFF by one memset, and every fold is an unsigned atomicMin:
+//   pass 1  word 0 = min over valid points of the raw f32 depth bits
+//           (valid: in the image, in front of the camera, no channel equal
+//           to the void value; depth > 0, so the unsigned order of the
+//           bits equals the float order).
+//   pass 2  a valid point whose RAW depth is < min(word 0, depth_scale) +
+//           0.1f (DEPTH_COLLISION_TOLERANCE, an f32 sum, never fused)
+//           folds ~order_key(feature) into word 1 + c for each channel c:
+//           order_key maps f32 to u32 in float order, so the minimum of
+//           its complement is the maximum feature. The plain version's
+//           buffer starts at depth_scale and the memset does not, hence
+//           the min with depth_scale (fminf also reads the empty word's
+//           NaN bits as depth_scale).
+// A resolve kernel, one thread per pixel, then writes what
+// `splat.project_to_feat` returns: clip(min(depth, depth_scale)) /
+// depth_scale and the (B, H, W, C) f32 features, each the max in key
+// space of the window's features and output_void_class (the plain
+// version's include_self=True keeps the void when every feature in the
+// window is below it). Min and max do not depend on the order of the
+// atomics, so the result is bit for bit that of the plain version.
 //
-// What bounds it: pass 1 reads 12 bytes of coordinates and 4*C of features
-// per point, pass 2 the same plus the 4-byte z-buffer entry, coalesced
-// along the point axis; the buffers take 4 + 4*C bytes per pixel. At
-// 1024x512 they hold 8 MiB (C=3) per batch element, inside the 50 MB L2
-// at batch 1 to 4, so the atomics resolve in L2: one atomicMin plus C
-// atomicMax per point in the window. Measured on an H100 SXM (700 W) at
-// batch 8, C=3 and 2.1M points per element, the kernel moves its own
-// two-pass traffic (52 bytes per point, 16 per pixel) at ~2.3 TB/s, ~70%
-// of the memory rate: the second read of every point, not the atomics,
-// is what keeps it ~3x above the function's byte bound.
+// The second read. Both passes run in ONE persistent cooperative launch
+// (cudaLaunchCooperativeKernel, a grid of as many blocks as fit on the
+// card at once) that walks the batch elements in turn: pass 1 over
+// element b, a grid-wide sync, pass 2 over element b in the reverse order
+// of pass 1, so that it meets first in the 50 MB L2 what pass 1 read
+// last, and a sync again.
+//
+// What bounds it: the function reads 12 + 4*C bytes per point and writes
+// 4 + 4*C per pixel; the atomics resolve in L2 (one per valid point, then
+// C per point in the window).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "pixel.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -47,120 +59,141 @@ __device__ __forceinline__ uint32_t order_key(float f) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
-struct Cloud {
-  const float* xs;
-  const float* ys;
-  const float* zs;
-  const float* feats;  // (M, C) of this batch element
+__device__ __forceinline__ float from_order_key(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7FFFFFFFu) : ~k);
+}
+
+struct ExactArgs {
+  se3ds::Clouds clouds;
+  int batch;
+  float depth_scale;
+  float tolerance;
+  uint32_t* words;  // (B, H*W, 1 + C)
 };
 
-__device__ __forceinline__ Cloud cloud_of(const float* coords,
-                                          const float* feats,
-                                          int64_t num_points,
-                                          int64_t coords_bstride,
-                                          int64_t feats_bstride) {
-  const int64_t b = blockIdx.y;
-  const float* xs = coords + b * coords_bstride;
-  return Cloud{xs, xs + num_points, xs + 2 * num_points,
-               feats + b * feats_bstride};
+template <bool kEquirect>
+__global__ void __launch_bounds__(256)
+    splat_exact_kernel(const ExactArgs args) {
+  const se3ds::Clouds& clouds = args.clouds;
+  const int channels = clouds.channels;
+  const int64_t stride = 1 + channels;
+  const int64_t num_points = clouds.num_points;
+  const int64_t threads = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  cg::grid_group grid = cg::this_grid();
+  for (int b = 0; b < args.batch; ++b) {
+    const se3ds::Cloud<kEquirect> cloud(clouds, b);
+    uint32_t* w = args.words +
+                  (int64_t)b * clouds.height * clouds.width * stride;
+    for (int64_t i = first; i < num_points; i += threads) {
+      int64_t flat;
+      float z;
+      if (!cloud.pixel(clouds, i, &flat, &z) || !cloud.non_void(clouds, i)) {
+        continue;
+      }
+      atomicMin(w + flat * stride, __float_as_uint(z));
+    }
+    grid.sync();
+    // Reverse order: point M-1-i for the i of pass 1.
+    for (int64_t i = first; i < num_points; i += threads) {
+      const int64_t j = num_points - 1 - i;
+      int64_t flat;
+      float z;
+      if (!cloud.pixel(clouds, j, &flat, &z) || !cloud.non_void(clouds, j)) {
+        continue;
+      }
+      // The window compares the RAW depth with the clipped minimum.
+      const float zmin =
+          fminf(__uint_as_float(__ldcg(w + flat * stride)), args.depth_scale);
+      if (!(z < __fadd_rn(zmin, args.tolerance))) continue;
+      for (int c = 0; c < channels; ++c) {
+        atomicMin(w + flat * stride + 1 + c,
+                  ~order_key(cloud.feats[j * channels + c]));
+      }
+    }
+    grid.sync();
+  }
 }
 
-// The pixel of point i if it is valid: in the image, in front of the
-// camera, and no feature channel equal to the void value.
-__device__ __forceinline__ bool valid_pixel(const Cloud& cloud, int64_t i,
-                                            int channels, int height,
-                                            int width, float void_value,
-                                            int64_t* flat) {
-  if (!se3ds::pixel_index(cloud.xs[i], cloud.ys[i], cloud.zs[i], height,
-                          width, flat)) {
-    return false;
+__global__ void resolve_exact_kernel(const uint32_t* __restrict__ words,
+                                     int64_t num_pixels, int channels,
+                                     float depth_scale, uint32_t void_key,
+                                     float* __restrict__ depth,
+                                     float* __restrict__ feat) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= num_pixels) return;
+  const uint32_t* w = words + p * (1 + channels);
+  if (depth) {
+    depth[p] = __fdiv_rn(fminf(__uint_as_float(w[0]), depth_scale),
+                         depth_scale);
   }
   for (int c = 0; c < channels; ++c) {
-    if (cloud.feats[i * channels + c] == void_value) return false;
-  }
-  return true;
-}
-
-__global__ void exact_depth_kernel(const float* __restrict__ coords,
-                                   const float* __restrict__ feats,
-                                   int64_t num_points, int64_t coords_bstride,
-                                   int64_t feats_bstride, int channels,
-                                   int height, int width, float void_value,
-                                   float* __restrict__ zbuf) {
-  const Cloud cloud = cloud_of(coords, feats, num_points, coords_bstride,
-                               feats_bstride);
-  int* zb = reinterpret_cast<int*>(zbuf + blockIdx.y * (int64_t)height *
-                                              width);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < num_points; i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t flat;
-    if (!valid_pixel(cloud, i, channels, height, width, void_value, &flat)) {
-      continue;
-    }
-    atomicMin(zb + flat, __float_as_int(cloud.zs[i]));
+    feat[p * channels + c] = from_order_key(max(~w[1 + c], void_key));
   }
 }
 
-__global__ void exact_feats_kernel(const float* __restrict__ coords,
-                                   const float* __restrict__ feats,
-                                   int64_t num_points, int64_t coords_bstride,
-                                   int64_t feats_bstride, int channels,
-                                   int height, int width, float void_value,
-                                   float tolerance,
-                                   const float* __restrict__ zbuf,
-                                   uint32_t* __restrict__ fbuf) {
-  const Cloud cloud = cloud_of(coords, feats, num_points, coords_bstride,
-                               feats_bstride);
-  const int64_t num_pixels = (int64_t)height * width;
-  const float* zb = zbuf + blockIdx.y * num_pixels;
-  uint32_t* fb = fbuf + blockIdx.y * num_pixels * channels;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       i < num_points; i += (int64_t)gridDim.x * blockDim.x) {
-    int64_t flat;
-    if (!valid_pixel(cloud, i, channels, height, width, void_value, &flat)) {
-      continue;
-    }
-    // The window compares the RAW depth with the clipped minimum.
-    if (!(cloud.zs[i] < zb[flat] + tolerance)) continue;
-    for (int c = 0; c < channels; ++c) {
-      atomicMax(fb + flat * channels + c,
-                order_key(cloud.feats[i * channels + c]));
-    }
+template <bool kEquirect>
+int launch_passes(const ExactArgs& args, cudaStream_t stream) {
+  const void* kernel = (const void*)splat_exact_kernel<kEquirect>;
+  int device, sms, per_sm;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 256,
+                                                        0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // As many blocks as run at once, fewer for a small cloud.
+  int64_t blocks = (int64_t)sms * per_sm;
+  const int64_t needed = (args.clouds.num_points + 255) / 256;
+  if (needed < blocks) blocks = needed;
+  if (blocks < 1) blocks = 1;
+  void* params[] = {const_cast<ExactArgs*>(&args)};
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
+                                          dim3(256), params, 0, stream);
 }
 
 }  // namespace
 
-// The two passes, each launched on `stream`; each returns
-// cudaGetLastError() as an int. Run se3ds_splat_exact_depth to its end
-// (the same stream orders it) before se3ds_splat_exact_feats.
-// coords: (B, 4, M) f32 with rows contiguous, batch stride coords_bstride.
-// feats: (B, M, C) f32, contiguous per batch, batch stride feats_bstride.
-// zbuf: (B, H*W) f32 filled with depth_scale. fbuf: (B, H*W, C) u32 filled
-// with the order key of output_void_class.
-extern "C" int se3ds_splat_exact_depth(const float* coords, const float* feats,
-                                       int batch, int64_t num_points,
-                                       int64_t coords_bstride,
-                                       int64_t feats_bstride, int channels,
-                                       int height, int width, float void_value,
-                                       float* zbuf, cudaStream_t stream) {
-  exact_depth_kernel<<<se3ds::point_grid(num_points, batch), 256, 0,
-                       stream>>>(coords, feats, num_points, coords_bstride,
-                                 feats_bstride, channels, height, width,
-                                 void_value, zbuf);
-  return (int)cudaGetLastError();
+// Memset of `words` to 0xFF, then the one cooperative launch of both
+// passes, on `stream`. Returns a CUDA error code as an int (0: launched).
+// xyz: (B, 4, M) f32, unit stride along M, rows `row_stride` apart,
+// batches `batch_stride` apart. offset: (B, 4) f32 camera positions (w
+// ignored) for world points, or null for view coordinates. feats:
+// (B, M, C) f32, contiguous per batch, batch stride feats_bstride.
+// words: (B, H*W, 1 + C) u32.
+extern "C" int se3ds_splat_exact(const float* xyz, int64_t row_stride,
+                                 int64_t batch_stride, const float* offset,
+                                 const float* feats, int64_t feats_bstride,
+                                 int batch, int64_t num_points, int channels,
+                                 int height, int width, float depth_scale,
+                                 float void_value, float tolerance,
+                                 uint32_t* words, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)batch * height * width * (1 + channels) * sizeof(uint32_t);
+  cudaError_t err = cudaMemsetAsync(words, 0xFF, bytes, stream);
+  if (err != cudaSuccess) return (int)err;
+  const ExactArgs args{
+      se3ds::Clouds{xyz, row_stride, batch_stride, offset, feats,
+                    feats_bstride, num_points, channels, height, width,
+                    void_value},
+      batch, depth_scale, tolerance, words};
+  return offset ? launch_passes<true>(args, stream)
+                : launch_passes<false>(args, stream);
 }
 
-extern "C" int se3ds_splat_exact_feats(const float* coords, const float* feats,
-                                       int batch, int64_t num_points,
-                                       int64_t coords_bstride,
-                                       int64_t feats_bstride, int channels,
-                                       int height, int width, float void_value,
-                                       float tolerance, const float* zbuf,
-                                       uint32_t* fbuf, cudaStream_t stream) {
-  exact_feats_kernel<<<se3ds::point_grid(num_points, batch), 256, 0,
-                       stream>>>(coords, feats, num_points, coords_bstride,
-                                 feats_bstride, channels, height, width,
-                                 void_value, tolerance, zbuf, fbuf);
+// The resolve on `stream`: one thread per pixel of the B*H*W in `words`.
+// depth: (B*H*W) f32, or null to skip it. feat: (B*H*W, C) f32. void_key:
+// order_key(output_void_class).
+extern "C" int se3ds_splat_exact_resolve(const uint32_t* words,
+                                         int64_t num_pixels, int channels,
+                                         float depth_scale, uint32_t void_key,
+                                         float* depth, float* feat,
+                                         cudaStream_t stream) {
+  if (num_pixels == 0) return 0;
+  resolve_exact_kernel<<<se3ds::pixel_blocks(num_pixels), 256, 0, stream>>>(
+      words, num_pixels, channels, depth_scale, void_key, depth, feat);
   return (int)cudaGetLastError();
 }

@@ -110,10 +110,9 @@ def rollout_generated(generator: Callable,
   memory_feats = torch.full((n, eval_seq_len * frame_points, 3), float(void),
                             device=device)
   prev_rgb = torch.zeros((n, height, width, 3), device=device)
-  # A 0-dim divisor: PyTorch's CUDA division by a Python scalar multiplies
-  # by its reciprocal, which would move the guidance by an ULP off the
-  # CPU's (and JAX's) bits.
-  byte_scale = torch.full((), 255.0, device=device)
+  # An exact divide on the card too: a multiply by the reciprocal would
+  # move the guidance by an ULP off the CPU's (and JAX's) bits.
+  byte_scale = device_lib.divisor(255.0, images)
   depth_tensor = depths[:, 0]
   all_generated, all_rmse = {}, {}
   aux = {'pred_depth': {}, 'projected': {}, 'blurred_mask': {},
@@ -128,11 +127,10 @@ def rollout_generated(generator: Callable,
     relative_position = positions[:, frame_idx]
     # Only max(1, frame_idx) frames are written; the rest is void.
     extent = max(1, frame_idx) * frame_points
-    pred_depth, pred_rgb = geometry.project_feats_to_equirectangular(
-        memory_feats[:, :extent],
-        memory_coords[:, :, :extent] - relative_position[..., None],
-        height, width, void_class=void, depth_scale=depth_scale,
-        splat_mode=splat_mode)
+    pred_depth, pred_rgb = geometry.project_memory_equirect(
+        memory_feats[:, :extent], memory_coords[:, :, :extent],
+        relative_position, height, width, void_class=void,
+        depth_scale=depth_scale, splat_mode=splat_mode)
     pred_mask = ((pred_depth > 0) & (pred_depth < 1)
                  & torch.all(pred_rgb != void, dim=-1)
                  ).to(torch.float32)[..., None]

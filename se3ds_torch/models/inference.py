@@ -189,17 +189,18 @@ def memory_project(memory: MemoryState, position: torch.Tensor, height: int,
   """
   relative_position = _transform_position(position.to(torch.float32))
   if project_semantics:
-    _, proj_semantic = geometry.project_feats_to_equirectangular(
-        memory.feats, memory.coords - relative_position[..., None], height,
-        width, constants.INVALID_SEM_VALUE, depth_scale,
-        splat_mode=splat_mode)
+    # Nobody reads the semantic depth: the 'fast' kernel skips it.
+    _, proj_semantic = geometry.project_memory_equirect(
+        memory.feats, memory.coords, relative_position, height, width,
+        constants.INVALID_SEM_VALUE, depth_scale, splat_mode=splat_mode,
+        need_depth=False)
   else:
     proj_semantic = torch.zeros((memory.coords.shape[0], height, width, 1),
                                 dtype=torch.float32,
                                 device=memory.coords.device)
-  proj_depth, proj_rgb = geometry.project_feats_to_equirectangular(
-      memory.rgb, memory.rgb_coords - relative_position[..., None], height,
-      width, constants.INVALID_RGB_VALUE, depth_scale, splat_mode=splat_mode)
+  proj_depth, proj_rgb = geometry.project_memory_equirect(
+      memory.rgb, memory.rgb_coords, relative_position, height, width,
+      constants.INVALID_RGB_VALUE, depth_scale, splat_mode=splat_mode)
   proj_mask = (
       (proj_depth > 0) & (proj_depth < 1)
       & torch.all(proj_rgb != constants.INVALID_RGB_VALUE, dim=-1)
@@ -346,7 +347,8 @@ class SE3DSModel:
     """Adds an equirectangular observation to memory."""
     self._check_memory_capacity()
     pano_rgb = self._tensor(pano_rgb)
-    self.prev_rgb_frame = (pano_rgb / 255).to(torch.float32)
+    self.prev_rgb_frame = (pano_rgb / device_lib.divisor(255.0, pano_rgb)
+                           ).to(torch.float32)
     slot = self._frames_written  # strict memory: the next free frame
     self._memory = memory_add_pano(
         self._memory, pano_rgb, self._tensor(pano_semantic),
@@ -398,7 +400,8 @@ class SE3DSModel:
         splat_mode=self.config.splat_mode,
         project_semantics=self.config.project_semantics)
     proj_semantic_img = proj_semantic[..., 0]
-    proj_rgb_norm = torch.clamp(proj_rgb / 255.0, 0.0, 1.0)
+    proj_rgb_norm = torch.clamp(
+        proj_rgb / device_lib.divisor(255.0, proj_rgb), 0.0, 1.0)
     inputs = {
         'prev_image': prev_rgb_frame,
         'proj_image': proj_rgb_norm,
@@ -460,7 +463,9 @@ class SE3DSModel:
       lean['pred_semantic_u8'] = (
           out['proj_semantic'] + out['pred_semantic']).to(torch.uint8)
       lean['pred_depth'] = out['proj_depth'] + out['pred_depth']
-      new_prev = (torch.clamp(out['pc_rgb'], 0, 255) / 255).to(torch.float32)
+      pc_rgb = torch.clamp(out['pc_rgb'], 0, 255)
+      new_prev = (pc_rgb / device_lib.divisor(255.0, pc_rgb)).to(
+          torch.float32)
     return lean, new_memory, new_prev
 
   @torch.no_grad()

@@ -22,11 +22,13 @@ from typing import Dict, Iterable, Optional
 CSRC_DIR = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'se3ds_torch'
 
-# sm_90a (Hopper). -fmad=false and the default IEEE division keep every
-# float rounding like the separate PyTorch ops of the plain versions.
+# sm_90a (Hopper), with nvcc's default -fmad=true, as PyTorch's own CUDA
+# kernels are built, so the math library's atan2f and acosf give the
+# bits of PyTorch's. The sources write every other float operation with
+# round-to-nearest intrinsics, which are never fused, so each rounds like
+# the separate PyTorch op of the plain version (csrc/pixel.cuh).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas=-v', '-shared',
-              '-Xcompiler', '-fPIC')
+              '-O3', '-Xptxas=-v', '-shared', '-Xcompiler', '-fPIC')
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

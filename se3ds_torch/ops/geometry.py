@@ -1,8 +1,10 @@
 """Equirectangular panorama geometry (port of `se3ds_tpu.ops.geometry`).
 
 The serving and eval subset: point-cloud unprojection at `size_mult=1`,
-the equirectangular view coordinates, the splat dispatch, the pole mask
-and the pole crop.
+the equirectangular view coordinates, the splat dispatch (with
+`project_memory_equirect`, the memory splat at a camera offset that the
+kernels fuse with the view coordinates), the pole mask and the pole
+crop.
 Conventions follow the JAX package: world z up toward the pano's north
 pole, heading measured from the x-axis toward the y-axis.
 """
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from se3ds_torch import device as device_lib
 from se3ds_torch.ops import splat
 
 # The exact modes are bit-identical in the JAX package ('scatter' is its
@@ -46,10 +49,24 @@ def equirect_view_coords(xyz1: torch.Tensor) -> torch.Tensor:
                          z / torch.where(zero, torch.ones_like(rad), rad))
   elevation = torch.arccos(torch.clamp(cos_elev, -1.0, 1.0))
 
-  proj_x = rad * ((heading / (2 * math.pi)) * 2 - 1)
-  proj_y = rad * ((elevation / math.pi) * 2 - 1)
+  # 0-dim divisors divide exactly on the card too (device.divisor).
+  proj_x = rad * ((heading / device_lib.divisor(2 * math.pi, heading)) * 2
+                  - 1)
+  proj_y = rad * ((elevation / device_lib.divisor(math.pi, elevation)) * 2
+                  - 1)
   return torch.stack([proj_x, proj_y, rad, torch.ones_like(proj_x)],
                      dim=1).to(dtype)
+
+
+def _is_exact(splat_mode: Optional[str]) -> bool:
+  """Whether `splat_mode` runs the exact splat; raises on unported modes."""
+  if splat_mode is None:
+    splat_mode = 'scatter'
+  if splat_mode not in SPLAT_MODES:
+    raise NotImplementedError(
+        f'splat_mode={splat_mode!r} is not ported yet (ROADMAP.md item '
+        f'A10); the port runs {SPLAT_MODES}.')
+  return splat_mode in EXACT_SPLAT_MODES
 
 
 def project_feats_to_equirectangular(
@@ -62,6 +79,10 @@ def project_feats_to_equirectangular(
     splat_mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Projects point-cloud features into an equirectangular image.
+
+  On CUDA tensors this is `project_memory_equirect` at a zero offset (the
+  kernels compute the view coordinates); on CPU tensors the plain path,
+  `equirect_view_coords` then the splat's plain version.
 
   Args:
     feats: (N, M) or (N, M, C) point features.
@@ -77,16 +98,78 @@ def project_feats_to_equirectangular(
     reprojected_depth: (N, H, W) depth in [0, 1].
     reprojected_feats: (N, H, W[, C]) feature image.
   """
-  if splat_mode is None:
-    splat_mode = 'scatter'
-  if splat_mode not in SPLAT_MODES:
-    raise NotImplementedError(
-        f'splat_mode={splat_mode!r} is not ported yet (ROADMAP.md item '
-        f'A10); the port runs {SPLAT_MODES}.')
-  splat_fn = (splat.project_to_feat if splat_mode in EXACT_SPLAT_MODES
-              else splat.project_to_feat_fast)
+  exact = _is_exact(splat_mode)
+  if xyz1.is_cuda:
+    return project_memory_equirect(
+        feats, xyz1, torch.zeros((1, 4), dtype=xyz1.dtype, device=xyz1.device),
+        height, width, void_class, depth_scale, splat_mode)
+  splat_fn = (splat.project_to_feat_plain if exact
+              else splat.project_to_feat_fast_plain)
   return splat_fn(equirect_view_coords(xyz1), feats.to(xyz1.dtype), height,
                   width, depth_scale=depth_scale, input_void_class=void_class)
+
+
+def project_memory_equirect(
+    feats: torch.Tensor,
+    xyz1: torch.Tensor,
+    offset: torch.Tensor,
+    height: int,
+    width: int,
+    void_class: float,
+    depth_scale: float,
+    splat_mode: Optional[str] = None,
+    need_depth: bool = True,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+  """The memory's equirect guidance seen from a camera at `offset`.
+
+  `project_feats_to_equirectangular(feats, xyz1 - offset[..., None], ...)`
+  without the translated copy: on CUDA tensors the splat kernels read the
+  world points and the offset and compute the view coordinates in
+  registers (`splat.splat_images`); CPU tensors take
+  `project_memory_equirect_plain`, which is that call.
+
+  Args:
+    feats, height, width, void_class, depth_scale, splat_mode: as
+      `project_feats_to_equirectangular`.
+    xyz1: (N, 4, M) world points (any row and batch stride, e.g. a slice
+      of the memory).
+    offset: (N, 4) or (1, 4) camera positions, homogeneous w = 0.
+    need_depth: False returns None for the depth (the 'fast' kernel then
+      skips the depth atomics).
+
+  Returns:
+    reprojected_depth: (N, H, W) depth in [0, 1], or None.
+    reprojected_feats: (N, H, W[, C]) feature image.
+  """
+  exact = _is_exact(splat_mode)
+  if xyz1.is_cuda:
+    return splat.splat_images(exact, xyz1, feats, height, width, depth_scale,
+                              void_class, offset=offset,
+                              need_depth=need_depth)
+  depth, feat = project_memory_equirect_plain(
+      feats, xyz1, offset, height, width, void_class, depth_scale,
+      splat_mode)
+  return (depth if need_depth else None), feat
+
+
+def project_memory_equirect_plain(
+    feats: torch.Tensor,
+    xyz1: torch.Tensor,
+    offset: torch.Tensor,
+    height: int,
+    width: int,
+    void_class: float,
+    depth_scale: float,
+    splat_mode: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Plain PyTorch version of `project_memory_equirect` on any device:
+  the translated copy, `equirect_view_coords` and the splat's plain
+  version (what the CPU runs)."""
+  splat_fn = (splat.project_to_feat_plain if _is_exact(splat_mode)
+              else splat.project_to_feat_fast_plain)
+  return splat_fn(equirect_view_coords(xyz1 - offset[..., None]),
+                  feats.to(xyz1.dtype), height, width,
+                  depth_scale=depth_scale, input_void_class=void_class)
 
 
 def _linspace_f32(start: float, stop: float, num: int,

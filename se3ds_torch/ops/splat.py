@@ -9,16 +9,18 @@ takes, per channel, the maximum feature over the points whose raw depth
 is within 0.1 m of that minimum; the 'fast' splat keeps the largest u32
 key `(255 - 8-bit depth bucket) << 24 | feature bytes`.
 
-On CUDA tensors each splat runs its hand-written kernel
-(`splat_cuda.splat_exact`, `splat_cuda.splat_fast`); on CPU tensors its
-plain PyTorch version.
+On CUDA tensors each splat runs its hand-written kernels (`splat_images`,
+over `splat_cuda`); on CPU tensors its plain PyTorch version
+(`project_to_feat_plain`, `project_to_feat_fast_plain`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from se3ds_torch import device as device_lib
 
 # Points deeper than (min depth + tolerance) at a pixel are left out of
 # the exact splat's feature max; the sum is taken in float32, as JAX adds
@@ -87,11 +89,10 @@ def packed_keys(depth: torch.Tensor, feats: torch.Tensor,
   `(255 - clip(depth / depth_scale * 255)) << 24 | feature bytes`, with
   channel 0 in the highest byte below the depth bucket.
   """
-  # A 0-dim tensor divisor on depth's device: PyTorch's CUDA division by a
-  # Python scalar multiplies by its reciprocal instead, which can move a
-  # point into the next depth bucket.
-  scale = torch.full((), depth_scale, dtype=depth.dtype, device=depth.device)
-  qdepth = torch.clamp(depth / scale * 255.0, 0.0, 255.0)
+  # An exact divide on the card too (`device.divisor`): a multiply by the
+  # reciprocal can move a point into the next depth bucket.
+  qdepth = torch.clamp(
+      depth / device_lib.divisor(depth_scale, depth) * 255.0, 0.0, 255.0)
   key = (255 - torch.nan_to_num(qdepth, nan=0.0).to(torch.int64)) << 24
   fbytes = torch.clamp(torch.nan_to_num(feats, nan=0.0), 0.0, 255.0).to(
       torch.int64)
@@ -99,6 +100,68 @@ def packed_keys(depth: torch.Tensor, feats: torch.Tensor,
   for c in range(channels):
     key = key | (fbytes[..., c] << (8 * (channels - 1 - c)))
   return key
+
+
+def _feats_3d(feats: torch.Tensor) -> Tuple[torch.Tensor, bool]:
+  """(N, M, C) features and whether they came as scalar (N, M)."""
+  if feats.dim() not in (2, 3):
+    raise ValueError(
+        f'feats should have shape (N, M) or (N, M, C), got {feats.shape}')
+  return (feats[..., None], True) if feats.dim() == 2 else (feats, False)
+
+
+def _check_fast_channels(channels: int) -> None:
+  if channels > 3:
+    raise NotImplementedError(
+        'project_to_feat_fast packs at most 3 feature bytes; the JAX '
+        'package falls back to the exact splat here, the port raises: '
+        'call project_to_feat.')
+
+
+def splat_images(exact: bool, points: torch.Tensor, feats: torch.Tensor,
+                 height: int, width: int, depth_scale: float,
+                 input_void_class: float, output_void_class: float = 0.0,
+                 offset: Optional[torch.Tensor] = None,
+                 need_depth: bool = True
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+  """A splat's two images from its CUDA kernels (CUDA tensors only).
+
+  The exact (`exact=True`) or 'fast' point pass, then its resolve, with
+  the outputs of `project_to_feat` / `project_to_feat_fast`.
+
+  Args:
+    points: (N, 4, M) view coordinates, or world points when `offset`, an
+      (N, 4) or (1, 4) camera position, is given (the kernels then take
+      the equirect view of `points - offset` in registers).
+    feats: (N, M) or (N, M, C) feature values.
+    need_depth: False returns None for the depth (the 'fast' kernel then
+      skips its depth atomics).
+
+  Returns:
+    projected_depth: (N, H, W) depth in [0, 1], or None.
+    projected_feat: (N, H, W) or (N, H, W, C) feature image.
+  """
+  from se3ds_torch.ops import splat_cuda  # it imports this module
+
+  feats, is_scalar_feat = _feats_3d(feats)
+  batch_size, channels = points.shape[0], feats.shape[-1]
+  feats = feats.to(points.dtype)
+  if exact:
+    depth, feat = splat_cuda.exact_resolve(
+        splat_cuda.exact_words(points, feats, height, width, depth_scale,
+                               input_void_class, offset=offset),
+        depth_scale, output_void_class, need_depth=need_depth)
+  else:
+    _check_fast_channels(channels)
+    depth, feat = splat_cuda.fast_resolve(
+        splat_cuda.fast_words(points, feats, height, width, depth_scale,
+                              input_void_class, offset=offset,
+                              need_depth=need_depth),
+        channels, depth_scale, output_void_class)
+  if depth is not None:
+    depth = depth.reshape(batch_size, height, width)
+  feat = feat.reshape(batch_size, height, width, channels)
+  return depth, feat[..., 0] if is_scalar_feat else feat
 
 
 def project_to_feat(
@@ -119,6 +182,9 @@ def project_to_feat(
   (200, 10, 7) in one window give (200, 200, 7). Any number of channels
   and any finite float features.
 
+  CUDA tensors run the exact kernel (`splat_images`); CPU tensors
+  `project_to_feat_plain`.
+
   Args:
     transformed_coords: (N, 4, M) of (x, y, z, 1); z is depth.
     feats: (N, M) or (N, M, C) feature values.
@@ -131,23 +197,29 @@ def project_to_feat(
     projected_depth: (N, H, W) depth in [0, 1].
     projected_feat: (N, H, W) or (N, H, W, C) feature image.
   """
+  if transformed_coords.is_cuda:
+    return splat_images(True, transformed_coords, feats, height, width,
+                        depth_scale, input_void_class, output_void_class)
+  return project_to_feat_plain(transformed_coords, feats, height, width,
+                               depth_scale, input_void_class,
+                               output_void_class)
+
+
+def project_to_feat_plain(transformed_coords, feats, height, width,
+                          depth_scale, input_void_class,
+                          output_void_class=0.0):
+  """Plain PyTorch version of `project_to_feat` (any device)."""
   from se3ds_torch.ops import splat_cuda  # it imports this module
 
-  if feats.dim() not in (2, 3):
-    raise ValueError(
-        f'feats should have shape (N, M) or (N, M, C), got {feats.shape}')
-  is_scalar_feat = feats.dim() == 2
-  if is_scalar_feat:
-    feats = feats[..., None]
+  feats, is_scalar_feat = _feats_3d(feats)
   dtype = transformed_coords.dtype
   batch_size, channels = transformed_coords.shape[0], feats.shape[-1]
-  zbuf, fbuf = splat_cuda.splat_exact(
+  zbuf, fbuf = splat_cuda.splat_exact_plain(
       transformed_coords, feats.to(dtype), height, width, depth_scale,
       input_void_class, output_void_class)
-  # A 0-dim divisor divides exactly on the card too (see packed_keys).
-  scale = torch.full((), depth_scale, dtype=zbuf.dtype, device=zbuf.device)
-  projected_depth = (torch.clamp(zbuf, 0.0, depth_scale) / scale).reshape(
-      batch_size, height, width).to(dtype)
+  projected_depth = (torch.clamp(zbuf, 0.0, depth_scale)
+                     / device_lib.divisor(depth_scale, zbuf)).reshape(
+                         batch_size, height, width).to(dtype)
   projected_feat = fbuf.to(dtype).reshape(batch_size, height, width, channels)
   if is_scalar_feat:
     projected_feat = projected_feat[..., 0]
@@ -170,6 +242,9 @@ def project_to_feat_fast(
   output is the exact minimum depth. Feature values must be integers in
   [0, 255] (RGB and semantic classes are).
 
+  CUDA tensors run the 'fast' kernel (`splat_images`); CPU tensors
+  `project_to_feat_fast_plain`.
+
   Args:
     transformed_coords: (N, 4, M) of (x, y, z, 1); z is depth.
     feats: (N, M) or (N, M, C) feature values, C <= 3.
@@ -182,28 +257,33 @@ def project_to_feat_fast(
     projected_depth: (N, H, W) depth in [0, 1].
     projected_feat: (N, H, W) or (N, H, W, C) feature image.
   """
+  if transformed_coords.is_cuda:
+    return splat_images(False, transformed_coords, feats, height, width,
+                        depth_scale, input_void_class, output_void_class)
+  return project_to_feat_fast_plain(transformed_coords, feats, height, width,
+                                    depth_scale, input_void_class,
+                                    output_void_class)
+
+
+def project_to_feat_fast_plain(transformed_coords, feats, height, width,
+                               depth_scale, input_void_class,
+                               output_void_class=0.0):
+  """Plain PyTorch version of `project_to_feat_fast` (any device)."""
   from se3ds_torch.ops import splat_cuda  # it imports this module
 
-  if feats.dim() not in (2, 3):
-    raise ValueError(
-        f'feats should have shape (N, M) or (N, M, C), got {feats.shape}')
-  is_scalar_feat = feats.dim() == 2
-  if is_scalar_feat:
-    feats = feats[..., None]
+  feats, is_scalar_feat = _feats_3d(feats)
   channels = feats.shape[-1]
-  if channels > 3:
-    raise NotImplementedError(
-        'project_to_feat_fast packs at most 3 feature bytes; the JAX '
-        'package falls back to the exact splat here, the port raises: '
-        'call project_to_feat.')
+  _check_fast_channels(channels)
   dtype = transformed_coords.dtype
   feats = feats.to(dtype)
   batch_size = transformed_coords.shape[0]
 
-  zbuf, pbuf = splat_cuda.splat_fast(transformed_coords, feats, height,
-                                     width, depth_scale, input_void_class)
-  projected_depth = (torch.clamp(zbuf, 0.0, depth_scale) / depth_scale
-                     ).reshape(batch_size, height, width)
+  zbuf, pbuf = splat_cuda.splat_fast_plain(transformed_coords, feats, height,
+                                           width, depth_scale,
+                                           input_void_class)
+  projected_depth = (torch.clamp(zbuf, 0.0, depth_scale)
+                     / device_lib.divisor(depth_scale, zbuf)).reshape(
+                         batch_size, height, width)
   got_point = pbuf != 0
   void = torch.full((), output_void_class, dtype=dtype, device=pbuf.device)
   cols = [torch.where(got_point,

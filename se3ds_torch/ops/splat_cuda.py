@@ -1,26 +1,33 @@
 """CUDA z-buffer splats: the Hopper counterparts of the TPU kernels of
 `se3ds_tpu.ops.splat_pallas`.
 
-`splat_fast` computes the two per-pixel buffers of the 'fast' splat:
-the exact f32 minimum depth (initialised to depth_scale) and the u32
-maximum of the packed key (initialised to 0). On a CUDA tensor it
-launches the kernel of `csrc/splat.cu`, which replaces the TPU kernel
-`_splat_kernel` (se3ds_tpu/ops/splat_pallas.py:87).
+Each source has a point pass and a per-pixel resolve:
 
-`splat_exact` computes the two per-pixel buffers of the exact 'scatter'
-splat: the same minimum depth, then the per-channel f32 maximum of the
-features of the points whose raw depth lies within 0.1 m of it
-(initialised to output_void_class). On a CUDA tensor it launches the two
-passes of `csrc/splat_exact.cu`, which replaces the TPU kernel
-`_exact_splat_kernel` (se3ds_tpu/ops/splat_pallas.py:204).
+- `csrc/splat.cu` (the 'fast' splat, replacing the TPU kernel
+  `_splat_kernel`, se3ds_tpu/ops/splat_pallas.py:87): `fast_words` folds
+  every point into a per-pixel u32 word pair (min depth bits, min of the
+  complemented packed key), `fast_resolve` turns the words into the depth
+  and feature images of `splat.project_to_feat_fast`.
+- `csrc/splat_exact.cu` (the exact 'scatter' splat, replacing
+  `_exact_splat_kernel`, :204): `exact_words` runs both passes in one
+  cooperative launch into 1 + C words per pixel (min depth bits, then the
+  min of the complemented order keys of the features in the window),
+  `exact_resolve` writes the images of `splat.project_to_feat`.
 
-On a CPU tensor each runs its plain version (`splat_fast_plain`,
-`splat_exact_plain`), the same function in plain PyTorch. Kernel and
+The point passes take either view coordinates (`offset=None`) or world
+points and a (B, 4) camera offset, whose equirect view coordinates they
+compute in registers (the main path: no translated or view tensor is
+written). These functions take CUDA tensors only; `splat.splat_images`
+and `geometry.project_memory_equirect` dispatch to them.
+
+`splat_fast` and `splat_exact` return the plain versions' per-pixel
+buffers (`splat_fast_plain`, `splat_exact_plain`): on a CUDA tensor from
+the kernel's words, on a CPU tensor from the plain version. Kernel and
 plain version give the same bits: min and max do not depend on the order
 of the points.
 
-`LAUNCHES` and `EXACT_LAUNCHES` count the launches of each source's
-kernels in this process (`splat_exact` launches two per call).
+`LAUNCHES` and `EXACT_LAUNCHES` count the point-pass launches of each
+source in this process (one per call; resolves are not counted).
 """
 
 from __future__ import annotations
@@ -41,11 +48,113 @@ EXACT_LAUNCHES = 0
 
 _U32_MASK = 0xFFFFFFFF
 
+# The point interface shared by the point passes: xyz, row_stride,
+# batch_stride, offset, feats, feats_bstride, batch, num_points, channels,
+# height, width, depth_scale, void_value.
+_POINT_ARGS = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+               ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_float, ctypes.c_float]
+_ARGTYPES = {
+    # need_depth, words, stream
+    'se3ds_splat_fast': _POINT_ARGS + [ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p],
+    # words, num_pixels, channels, need_depth, depth_scale, out_void,
+    # depth, feat, stream
+    'se3ds_splat_fast_resolve': [ctypes.c_void_p, ctypes.c_int64,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                 ctypes.c_float, ctypes.c_void_p,
+                                 ctypes.c_void_p, ctypes.c_void_p],
+    # tolerance, words, stream
+    'se3ds_splat_exact': _POINT_ARGS + [ctypes.c_float, ctypes.c_void_p,
+                                        ctypes.c_void_p],
+    # words, num_pixels, channels, depth_scale, void_key, depth, feat,
+    # stream
+    'se3ds_splat_exact_resolve': [ctypes.c_void_p, ctypes.c_int64,
+                                  ctypes.c_int, ctypes.c_float,
+                                  ctypes.c_uint32, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_void_p],
+}
+
+
+def _library(source: str) -> ctypes.CDLL:
+  lib = cuda_build.load(source)
+  for name, argtypes in _ARGTYPES.items():
+    fn = getattr(lib, name, None)
+    if fn is not None and fn.argtypes is None:
+      fn.argtypes = argtypes
+      fn.restype = ctypes.c_int
+  return lib
+
+
+def _call(source: str, name: str, *args) -> None:
+  """Calls a launcher on the current stream; raises on a CUDA error."""
+  fn = getattr(_library(source), name)
+  err = fn(*args, torch.cuda.current_stream().cuda_stream)
+  if err != 0:
+    raise RuntimeError(f'{name} failed with CUDA error {err}')
+
+
+def check_inputs(points: torch.Tensor, feats: torch.Tensor, height: int,
+                 width: int, max_channels: Optional[int] = 3,
+                 offset: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+  """Validates a point pass's inputs; returns them as the kernels read
+  them: points with unit stride along the points (any row and batch
+  stride), feats with unit inner strides, offset as (B, 4) contiguous.
+
+  `max_channels` is 3 for the 'fast' kernel, which packs feature bytes,
+  and None for the exact kernel, which takes any number of channels.
+  """
+  if points.dtype != torch.float32 or feats.dtype != torch.float32:
+    raise TypeError(f'splat kernel takes float32 points and feats, got '
+                    f'{points.dtype} and {feats.dtype}')
+  if not points.is_cuda or feats.device != points.device:
+    raise ValueError(f'splat kernel takes CUDA tensors on one device, got '
+                     f'points on {points.device}, feats on {feats.device}')
+  batch, rows, num_points = points.shape
+  channels = feats.shape[-1]
+  if (rows != 4 or feats.shape != (batch, num_points, channels)
+      or channels < 1 or (max_channels and channels > max_channels)):
+    raise ValueError(f'expected points (B, 4, M) and feats (B, M, C) with '
+                     f'1 <= C <= {max_channels or "any"}, got '
+                     f'{tuple(points.shape)} and {tuple(feats.shape)}')
+  if height * width >= 2**31 or batch >= 2**16:
+    raise ValueError(f'image {height}x{width} or batch {batch} too large')
+  if points.stride(2) != 1:
+    points = points.contiguous()
+  if feats.stride(2) != 1 or feats.stride(1) != channels:
+    feats = feats.contiguous()
+  if offset is not None:
+    if offset.shape[-1] != 4 or offset.shape[0] not in (1, batch):
+      raise ValueError(f'offset must be (B, 4) or (1, 4) for batch {batch},'
+                       f' got {tuple(offset.shape)}')
+    offset = offset.to(points.device, torch.float32).expand(
+        batch, 4).contiguous()
+  return points, feats, offset
+
+
+def _point_args(points, feats, offset, height, width, depth_scale,
+                input_void_class):
+  batch, _, num_points = points.shape
+  return (points.data_ptr(), points.stride(1), points.stride(0),
+          offset.data_ptr() if offset is not None else None,
+          feats.data_ptr(), feats.stride(0), batch, num_points,
+          feats.shape[-1], height, width, float(depth_scale),
+          float(input_void_class))
+
+
+def _empty_words(shape, device) -> torch.Tensor:
+  return torch.full(shape, -1, dtype=torch.int32, device=device)
+
+
+# -- the 'fast' splat ---------------------------------------------------------
+
 
 def splat_fast_plain(coords: torch.Tensor, feats: torch.Tensor, height: int,
                      width: int, depth_scale: float, input_void_class: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Plain PyTorch version of the kernel (any device).
+  """Plain PyTorch version of the 'fast' point pass (any device).
 
   Args:
     coords: (B, 4, M) float32 view coordinates.
@@ -71,113 +180,57 @@ def splat_fast_plain(coords: torch.Tensor, feats: torch.Tensor, height: int,
   return zbuf[:, :num_pixels], pbuf[:, :num_pixels]
 
 
-# The C interface shared by the launchers: coords, feats, batch,
-# num_points, coords_bstride, feats_bstride, channels, height, width.
-_POINT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-               ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int]
-_ARGTYPES = {
-    # depth_scale, void_value, zbuf, pbuf, stream
-    'se3ds_splat_fast': _POINT_ARGS + [ctypes.c_float, ctypes.c_float,
-                                       ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_void_p],
-    # void_value, zbuf, stream
-    'se3ds_splat_exact_depth': _POINT_ARGS + [ctypes.c_float,
-                                              ctypes.c_void_p,
-                                              ctypes.c_void_p],
-    # void_value, tolerance, zbuf, fbuf, stream
-    'se3ds_splat_exact_feats': _POINT_ARGS + [ctypes.c_float,
-                                              ctypes.c_float,
-                                              ctypes.c_void_p,
-                                              ctypes.c_void_p,
-                                              ctypes.c_void_p],
-}
+def fast_words(points: torch.Tensor, feats: torch.Tensor, height: int,
+               width: int, depth_scale: float, input_void_class: float,
+               offset: Optional[torch.Tensor] = None,
+               need_depth: bool = True) -> torch.Tensor:
+  """The 'fast' point pass (CUDA tensors): a memset and one launch.
 
+  Args:
+    points: (B, 4, M) float32, view coordinates when `offset` is None,
+      else world points whose view is taken from `offset`.
+    feats: (B, M, C) float32, C <= 3.
+    offset: None or (B, 4) / (1, 4) float32 camera positions (w ignored).
+    need_depth: False leaves out the depth words and their atomics.
 
-def _library(source: str = SOURCE) -> ctypes.CDLL:
-  lib = cuda_build.load(source)
-  for name, argtypes in _ARGTYPES.items():
-    fn = getattr(lib, name, None)
-    if fn is not None and fn.argtypes is None:
-      fn.argtypes = argtypes
-      fn.restype = ctypes.c_int
-  return lib
-
-
-def check_inputs(coords: torch.Tensor, feats: torch.Tensor, height: int,
-                 width: int, max_channels: Optional[int] = 3
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Validates a kernel's inputs; returns them with unit inner strides.
-
-  `max_channels` is 3 for the 'fast' kernel, which packs feature bytes,
-  and None for the exact kernel, which takes any number of channels.
-  """
-  if coords.dtype != torch.float32 or feats.dtype != torch.float32:
-    raise TypeError(f'splat kernel takes float32 coords and feats, got '
-                    f'{coords.dtype} and {feats.dtype}')
-  if feats.device != coords.device:
-    raise ValueError(f'coords on {coords.device}, feats on {feats.device}')
-  batch, rows, num_points = coords.shape
-  channels = feats.shape[-1]
-  if (rows != 4 or feats.shape != (batch, num_points, channels)
-      or channels < 1 or (max_channels and channels > max_channels)):
-    raise ValueError(f'expected coords (B, 4, M) and feats (B, M, C) with '
-                     f'1 <= C <= {max_channels or "any"}, got '
-                     f'{tuple(coords.shape)} and {tuple(feats.shape)}')
-  if height * width >= 2**31 or batch >= 2**16:
-    raise ValueError(f'image {height}x{width} or batch {batch} too large')
-  if coords.stride(2) != 1 or coords.stride(1) != num_points:
-    coords = coords.contiguous()
-  if feats.stride(2) != 1 or feats.stride(1) != channels:
-    feats = feats.contiguous()
-  return coords, feats
-
-
-def launch_splat_fast(coords: torch.Tensor, feats: torch.Tensor,
-                      height: int, width: int, depth_scale: float,
-                      input_void_class: float, zbuf: torch.Tensor,
-                      pbuf: torch.Tensor) -> None:
-  """Launches the kernel into caller-initialised buffers.
-
-  zbuf: (B, H*W) float32 filled with depth_scale; pbuf: (B, H*W) int32
-  filled with 0 (it receives u32 bits). Inputs as `check_inputs` returns
-  them. Runs on the current stream; raises if the launch is refused.
+  Returns:
+    (B, H*W, 2) int32 words (u32 depth bits, u32 ~key) with `need_depth`,
+    else (B, H*W) int32 ~key words; 0xFFFFFFFF (-1) where empty.
   """
   global LAUNCHES
-  batch, _, num_points = coords.shape
-  for buf, dtype in ((zbuf, torch.float32), (pbuf, torch.int32)):
-    if (buf.dtype != dtype or buf.shape != (batch, height * width)
-        or buf.device != coords.device or not buf.is_contiguous()):
-      raise ValueError(f'buffer {buf.dtype} {tuple(buf.shape)} on '
-                       f'{buf.device}; expected contiguous {dtype} '
-                       f'({batch}, {height * width}) on {coords.device}')
+  points, feats, offset = check_inputs(points, feats, height, width,
+                                       offset=offset)
+  batch, _, num_points = points.shape
+  shape = (batch, height * width) + ((2,) if need_depth else ())
   if not (batch and num_points):
-    return
-  lib = _library()
-  with torch.cuda.device(coords.device):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.se3ds_splat_fast(
-        coords.data_ptr(), feats.data_ptr(), batch, num_points,
-        coords.stride(0), feats.stride(0), feats.shape[-1], height, width,
-        float(depth_scale), float(input_void_class), zbuf.data_ptr(),
-        pbuf.data_ptr(), stream)
-  if err != 0:
-    raise RuntimeError(f'splat kernel launch failed with CUDA error {err}')
+    return _empty_words(shape, points.device)
+  words = torch.empty(shape, dtype=torch.int32, device=points.device)
+  with torch.cuda.device(points.device):
+    _call(SOURCE, 'se3ds_splat_fast',
+          *_point_args(points, feats, offset, height, width, depth_scale,
+                       input_void_class), int(need_depth), words.data_ptr())
   LAUNCHES += 1
+  return words
 
 
-def _splat_fast_cuda(coords: torch.Tensor, feats: torch.Tensor, height: int,
-                     width: int, depth_scale: float, input_void_class: float
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-  coords, feats = check_inputs(coords, feats, height, width)
-  batch = coords.shape[0]
-  zbuf = torch.full((batch, height * width), depth_scale,
-                    dtype=torch.float32, device=coords.device)
-  pbuf = torch.zeros((batch, height * width), dtype=torch.int32,
-                     device=coords.device)
-  launch_splat_fast(coords, feats, height, width, depth_scale,
-                    input_void_class, zbuf, pbuf)
-  return zbuf, pbuf.to(torch.int64) & _U32_MASK
+def fast_resolve(words: torch.Tensor, channels: int, depth_scale: float,
+                 output_void_class: float
+                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+  """The 'fast' resolve (CUDA): `fast_words` -> (depth (B, H*W) in
+  [0, 1], or None when the words hold no depth; features (B, H*W, C)
+  float32, output_void_class where no point is)."""
+  need_depth = words.dim() == 3
+  batch, num_pixels = words.shape[:2]
+  feat = torch.empty((batch, num_pixels, channels), dtype=torch.float32,
+                     device=words.device)
+  depth = (torch.empty((batch, num_pixels), dtype=torch.float32,
+                       device=words.device) if need_depth else None)
+  with torch.cuda.device(words.device):
+    _call(SOURCE, 'se3ds_splat_fast_resolve', words.data_ptr(),
+          batch * num_pixels, channels, int(need_depth), float(depth_scale),
+          float(output_void_class),
+          depth.data_ptr() if need_depth else None, feat.data_ptr())
+  return depth, feat
 
 
 def splat_fast(coords: torch.Tensor, feats: torch.Tensor, height: int,
@@ -185,14 +238,19 @@ def splat_fast(coords: torch.Tensor, feats: torch.Tensor, height: int,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Per-pixel (min depth, max packed key) buffers of the 'fast' splat.
 
-  Launches the CUDA kernel for CUDA tensors (or raises); CPU tensors take
-  `splat_fast_plain`. Same arguments and results as `splat_fast_plain`.
+  CUDA tensors go through the kernel's point pass (`fast_words`) and
+  are read off its words; CPU tensors take `splat_fast_plain`. Same
+  arguments and results as `splat_fast_plain`.
   """
-  if coords.is_cuda:
-    return _splat_fast_cuda(coords, feats, height, width, depth_scale,
+  if not coords.is_cuda:
+    return splat_fast_plain(coords, feats, height, width, depth_scale,
                             input_void_class)
-  return splat_fast_plain(coords, feats, height, width, depth_scale,
-                          input_void_class)
+  words = fast_words(coords, feats, height, width, depth_scale,
+                     input_void_class)
+  scale = torch.full((), depth_scale, device=words.device)
+  # fmin reads the empty words' NaN bits as depth_scale.
+  zbuf = torch.fmin(words[..., 0].view(torch.float32), scale)
+  return zbuf, (~words[..., 1]).to(torch.int64) & _U32_MASK
 
 
 # -- the exact splat ----------------------------------------------------------
@@ -202,7 +260,7 @@ def splat_exact_plain(coords: torch.Tensor, feats: torch.Tensor, height: int,
                       width: int, depth_scale: float, input_void_class: float,
                       output_void_class: float
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-  """Plain PyTorch version of the exact kernel (any device).
+  """Plain PyTorch version of the exact splat's passes (any device).
 
   Args:
     coords: (B, 4, M) float32 view coordinates.
@@ -251,65 +309,49 @@ def decode_order_keys(keys: torch.Tensor) -> torch.Tensor:
   return bits.view(torch.float32)
 
 
-def launch_splat_exact(coords: torch.Tensor, feats: torch.Tensor,
-                       height: int, width: int, input_void_class: float,
-                       zbuf: torch.Tensor, fbuf: torch.Tensor) -> None:
-  """Launches both passes into caller-initialised buffers.
+def exact_words(points: torch.Tensor, feats: torch.Tensor, height: int,
+                width: int, depth_scale: float, input_void_class: float,
+                offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """Both passes of the exact splat (CUDA tensors): a memset and one
+  cooperative launch.
 
-  zbuf: (B, H*W) float32 filled with depth_scale; fbuf: (B, H*W, C) int32
-  filled with `order_key(output_void_class)` (it receives u32 keys).
-  Inputs as `check_inputs(..., max_channels=None)` returns them. Runs on
-  the current stream; raises if a launch is refused.
+  Args as `fast_words` (any C >= 1). Returns (B, H*W, 1 + C) int32 words:
+  u32 min depth bits, then the u32 min of ~order_key(feature) over the
+  window per channel; 0xFFFFFFFF (-1) where empty.
   """
   global EXACT_LAUNCHES
-  batch, _, num_points = coords.shape
-  channels = feats.shape[-1]
-  num_pixels = height * width
-  for buf, dtype, shape in ((zbuf, torch.float32, (batch, num_pixels)),
-                            (fbuf, torch.int32,
-                             (batch, num_pixels, channels))):
-    if (buf.dtype != dtype or buf.shape != shape
-        or buf.device != coords.device or not buf.is_contiguous()):
-      raise ValueError(f'buffer {buf.dtype} {tuple(buf.shape)} on '
-                       f'{buf.device}; expected contiguous {dtype} '
-                       f'{shape} on {coords.device}')
+  points, feats, offset = check_inputs(points, feats, height, width,
+                                       max_channels=None, offset=offset)
+  batch, _, num_points = points.shape
+  shape = (batch, height * width, 1 + feats.shape[-1])
   if not (batch and num_points):
-    return
-  lib = _library(EXACT_SOURCE)
-  args = (coords.data_ptr(), feats.data_ptr(), batch, num_points,
-          coords.stride(0), feats.stride(0), channels, height, width,
-          float(input_void_class))
-  with torch.cuda.device(coords.device):
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.se3ds_splat_exact_depth(*args, zbuf.data_ptr(), stream)
-    if err != 0:
-      raise RuntimeError(f'exact splat depth pass failed to launch with '
-                         f'CUDA error {err}')
-    EXACT_LAUNCHES += 1
-    err = lib.se3ds_splat_exact_feats(
-        *args, splat_lib.DEPTH_COLLISION_TOLERANCE, zbuf.data_ptr(),
-        fbuf.data_ptr(), stream)
-    if err != 0:
-      raise RuntimeError(f'exact splat feature pass failed to launch with '
-                         f'CUDA error {err}')
-    EXACT_LAUNCHES += 1
+    return _empty_words(shape, points.device)
+  words = torch.empty(shape, dtype=torch.int32, device=points.device)
+  with torch.cuda.device(points.device):
+    _call(EXACT_SOURCE, 'se3ds_splat_exact',
+          *_point_args(points, feats, offset, height, width, depth_scale,
+                       input_void_class),
+          splat_lib.DEPTH_COLLISION_TOLERANCE, words.data_ptr())
+  EXACT_LAUNCHES += 1
+  return words
 
 
-def _splat_exact_cuda(coords: torch.Tensor, feats: torch.Tensor, height: int,
-                      width: int, depth_scale: float, input_void_class: float,
-                      output_void_class: float
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-  coords, feats = check_inputs(coords, feats, height, width,
-                               max_channels=None)
-  batch, channels = coords.shape[0], feats.shape[-1]
-  zbuf = torch.full((batch, height * width), depth_scale,
-                    dtype=torch.float32, device=coords.device)
-  fbuf = torch.full((batch, height * width, channels),
-                    order_key(output_void_class), dtype=torch.int32,
-                    device=coords.device)
-  launch_splat_exact(coords, feats, height, width, input_void_class, zbuf,
-                     fbuf)
-  return zbuf, decode_order_keys(fbuf)
+def exact_resolve(words: torch.Tensor, depth_scale: float,
+                  output_void_class: float, need_depth: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+  """The exact resolve (CUDA): `exact_words` -> (depth (B, H*W) in
+  [0, 1] or None, features (B, H*W, C) float32)."""
+  batch, num_pixels, stride = words.shape
+  feat = torch.empty((batch, num_pixels, stride - 1), dtype=torch.float32,
+                     device=words.device)
+  depth = (torch.empty((batch, num_pixels), dtype=torch.float32,
+                       device=words.device) if need_depth else None)
+  with torch.cuda.device(words.device):
+    _call(EXACT_SOURCE, 'se3ds_splat_exact_resolve', words.data_ptr(),
+          batch * num_pixels, stride - 1, float(depth_scale),
+          order_key(output_void_class) & _U32_MASK,
+          depth.data_ptr() if need_depth else None, feat.data_ptr())
+  return depth, feat
 
 
 def splat_exact(coords: torch.Tensor, feats: torch.Tensor, height: int,
@@ -318,12 +360,17 @@ def splat_exact(coords: torch.Tensor, feats: torch.Tensor, height: int,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Per-pixel (min depth, windowed per-channel max) of the exact splat.
 
-  Launches the two CUDA passes for CUDA tensors (or raises); CPU tensors
-  take `splat_exact_plain`. Same arguments and results as
-  `splat_exact_plain`.
+  CUDA tensors go through the kernel's passes (`exact_words`) and are
+  read off its words; CPU tensors take `splat_exact_plain`. Same
+  arguments and results as `splat_exact_plain`.
   """
-  if coords.is_cuda:
-    return _splat_exact_cuda(coords, feats, height, width, depth_scale,
+  if not coords.is_cuda:
+    return splat_exact_plain(coords, feats, height, width, depth_scale,
                              input_void_class, output_void_class)
-  return splat_exact_plain(coords, feats, height, width, depth_scale,
-                           input_void_class, output_void_class)
+  words = exact_words(coords, feats, height, width, depth_scale,
+                      input_void_class)
+  scale = torch.full((), depth_scale, device=words.device)
+  zbuf = torch.fmin(words[..., 0].view(torch.float32), scale)
+  keys = torch.clamp((~words[..., 1:]).to(torch.int64) & _U32_MASK,
+                     min=order_key(output_void_class) & _U32_MASK)
+  return zbuf, decode_order_keys(keys.to(torch.int32))

@@ -5,9 +5,13 @@
 Builds the full-width serving model (1024x512, gen_dims=128, ResNet-101,
 bf16, random weights from seed 0), adds one synthetic pano, warms up
 with two `add_preds_to_memory=True` frames, then profiles `--frames`
-more. Prints the device time by kernel (top `--top`), the splat kernel's
-share, and the device's idle share of the profiled wall time, with the
-card's name and power limit. Needs a CUDA card.
+more. Prints the device time by kernel (top `--top`), the device
+operations (kernels, memsets, copies) per frame, the splat stage's
+device span (everything `inference.memory_project` runs: both splats
+from the world memory to the guidance images, and the mask) and the
+'fast' splat kernels' share, and the device's idle share of the profiled wall
+time, with the card's name and power limit. Needs a CUDA card. Run as a
+file with PYTHONPATH=<tree> it profiles that tree's `se3ds_torch`.
 """
 
 import argparse
@@ -16,7 +20,7 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from se3ds_torch.models import inference
 from se3ds_torch.models import model_config
@@ -51,6 +55,13 @@ def main():
   model = inference.SE3DSModel(
       cfg, generator=torch.Generator(device='cuda').manual_seed(0))
   model.add_to_memory(*_pano(512), np.zeros((1, 3), np.float32))
+  memory_project = inference.memory_project
+
+  def splat_stage(*args, **kwargs):
+    with record_function('splat stage'):
+      return memory_project(*args, **kwargs)
+
+  inference.memory_project = splat_stage
   step = lambda i: model(np.array([[0.2 * (i + 1), 0.1, 0.0]], np.float32),
                          add_preds_to_memory=True)
   for i in range(2):
@@ -65,9 +76,17 @@ def main():
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
 
-  events = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
+  averages = prof.key_averages()
+  cuda = torch.autograd.DeviceType.CUDA
+  # The stage's range counts the device time of the kernels it launched;
+  # its device-side annotation row, where the profiler adds one, is no
+  # kernel.
+  events = [e for e in averages if e.device_type == cuda
+            and e.self_device_time_total > 0 and e.key != 'splat stage']
+  # The stage's device span: the profiler's device-side row of the range
+  # (first to last device operation of each call, gaps included).
+  stage_us = sum(e.self_device_time_total for e in averages
+                 if e.key == 'splat stage' and e.device_type == cuda)
   events.sort(key=lambda e: e.self_device_time_total, reverse=True)
   device_us = sum(e.self_device_time_total for e in events)
   print(power)
@@ -91,9 +110,18 @@ def main():
     print(f'{e.self_device_time_total / 1e3 / args.frames:16.4f} '
           f'{e.self_device_time_total / device_us:7.3f} {e.count:6d}  '
           f'{e.key[:90]}')
+  print(f'device operations per frame: '
+        f'{sum(e.count for e in events) / args.frames:.1f}')
+  if stage_us:
+    print(f'splat stage (memory_project): device span '
+          f'{stage_us / 1e3 / args.frames:.4f} ms/frame, share '
+          f'{stage_us / device_us:.5f}')
+  else:
+    print('splat stage (memory_project): the profiler kept no device-side '
+          'row of the range; time it with se3ds_torch/splat_stage.py')
   splat_us = sum(e.self_device_time_total for e in events
-                 if 'splat_fast_kernel' in e.key)
-  print(f'splat_fast_kernel: {splat_us / 1e3 / args.frames:.4f} ms/frame, '
+                 if 'splat_fast' in e.key or 'resolve_fast' in e.key)
+  print(f'splat_fast kernels: {splat_us / 1e3 / args.frames:.4f} ms/frame, '
         f'share {splat_us / device_us:.5f}')
 
 

@@ -6,6 +6,8 @@ and skip elsewhere. They import no JAX, so they run where the port runs:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import inference
 from se3ds_torch.models import model_config
+from se3ds_torch.ops import geometry
 from se3ds_torch.ops import splat
 from se3ds_torch.ops import splat_cuda
 
@@ -104,7 +107,8 @@ def test_exact_kernel_equals_plain_version(card, batch, num_points, channels,
   zp, fp = splat_cuda.splat_exact_plain(coords, feats, 64, 256, 20.0, -1.0,
                                         -1.0)
   torch.cuda.synchronize()
-  assert splat_cuda.EXACT_LAUNCHES == before + (2 if num_points else 0)
+  # Both passes are one cooperative launch.
+  assert splat_cuda.EXACT_LAUNCHES == before + (1 if num_points else 0)
   assert torch.equal(zk, zp) and torch.equal(fk, fp)
 
 
@@ -113,7 +117,7 @@ def test_exact_splat_never_takes_the_plain_version(card):
   coords, feats = _cloud(7, 1, 1000, 3, card)
   before = splat_cuda.EXACT_LAUNCHES
   splat.project_to_feat(coords, feats, 32, 64, 20.0, -1.0)
-  assert splat_cuda.EXACT_LAUNCHES == before + 2
+  assert splat_cuda.EXACT_LAUNCHES == before + 1
   with pytest.raises(TypeError):
     splat.project_to_feat(coords.double(), feats, 32, 64, 20.0, -1.0)
 
@@ -133,5 +137,136 @@ def test_rollout_runs_on_the_card_by_default(card):
            'position': np.zeros((1, 2, 4), np.float32)}
   before = splat_cuda.EXACT_LAUNCHES
   generated, _, _ = metrics.rollout_generated(generator, batch, 2, 20.0)
-  assert splat_cuda.EXACT_LAUNCHES == before + 4
+  assert splat_cuda.EXACT_LAUNCHES == before + 2  # one per frame
   assert generated[1].is_cuda and torch.isfinite(generated[1]).all()
+
+
+def _world_cloud(seed, batch, num_points, channels, device):
+  """World points around a camera, some voids, and the (B, 4) offset."""
+  rs = np.random.RandomState(seed)
+  xyz = rs.uniform(-6.0, 6.0, (batch, 4, num_points)).astype(np.float32)
+  xyz[:, 3] = 1.0
+  xyz[:, :3, :8] = 0.0  # at the world origin
+  feats = rs.randint(-1, 256, (batch, num_points, channels)).astype(
+      np.float32)
+  offset = np.zeros((batch, 4), np.float32)
+  offset[:, :3] = rs.uniform(-1.0, 1.0, (batch, 3))
+  offset[0, :3] = 0.0  # points at the camera: rad 0
+  return (torch.from_numpy(xyz).to(device),
+          torch.from_numpy(feats).to(device),
+          torch.from_numpy(offset).to(device))
+
+
+# (splat_mode, channels, need_depth): the semantic and RGB clouds of the
+# serving splat, and the rollout's exact splat.
+EQUIRECT_CASES = [('fast', 1, False), ('fast', 3, True), ('sorted', 3, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode,channels,need_depth', EQUIRECT_CASES)
+@pytest.mark.parametrize('strided', [False, True])
+def test_equirect_kernels_equal_plain_version(card, mode, channels,
+                                              need_depth, strided):
+  """World points and a camera offset through the fused prelude against
+  the plain path (translate, equirect_view_coords, plain splat) on the
+  same card tensors; with `strided`, a batch slice of a larger memory.
+  Tolerance: none (torch.equal)."""
+  xyz, feats, offset = _world_cloud(channels, 2, 60000, channels, card)
+  if strided:
+    xyz, feats = xyz[:, :, :40000], feats[:, :40000]
+  counter = 'LAUNCHES' if mode == 'fast' else 'EXACT_LAUNCHES'
+  before = getattr(splat_cuda, counter)
+  depth, feat = geometry.project_memory_equirect(
+      feats, xyz, offset, 64, 128, -1.0, 20.0, mode, need_depth=need_depth)
+  plain_depth, plain_feat = geometry.project_memory_equirect_plain(
+      feats, xyz, offset, 64, 128, -1.0, 20.0, mode)
+  torch.cuda.synchronize()
+  assert getattr(splat_cuda, counter) == before + 1
+  assert torch.equal(feat, plain_feat)
+  if need_depth:
+    assert torch.equal(depth, plain_depth)
+  else:
+    assert depth is None
+
+
+def _forbid(monkeypatch, module, *names):
+  def refuse(*args, **kwargs):
+    raise AssertionError('the plain path ran on the card')
+  for name in names:
+    monkeypatch.setattr(module, name, refuse)
+
+
+@pytest.mark.cuda
+def test_card_paths_never_run_the_plain_prelude_or_splat(card, monkeypatch):
+  """Serving and the rollout on the card reach the kernels only: neither
+  `equirect_view_coords` nor a plain splat runs. Launch counts: 2 'fast'
+  point passes per served frame, 1 exact launch per rollout frame."""
+  _forbid(monkeypatch, geometry, 'equirect_view_coords')
+  _forbid(monkeypatch, splat_cuda, 'splat_fast_plain', 'splat_exact_plain')
+  model = inference.SE3DSModel(dataclasses.replace(
+      model_config.get_test_config(), memory_frames=4))
+  rs = np.random.RandomState(0)
+  model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
+                      rs.randint(0, 42, (1, 32, 64, 1)),
+                      rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  fast, exact = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+  model(np.array([[0.3, 0, 0]], np.float32), add_preds_to_memory=True)
+  model.predict_trajectory(np.array([[0.5, 0, 0], [0.6, 0.1, 0]],
+                                    np.float32))
+  assert splat_cuda.LAUNCHES == fast + 2 * 3
+  assert splat_cuda.EXACT_LAUNCHES == exact
+  generator = model.model
+  batch = {'image': rs.rand(2, 3, 32, 64, 3).astype(np.float32),
+           'depth': rs.uniform(0.1, 0.8, (2, 3, 32, 64, 1)).astype(
+               np.float32),
+           'position': rs.uniform(-0.2, 0.2, (2, 3, 4)).astype(np.float32)}
+  fast = splat_cuda.LAUNCHES
+  metrics.rollout_generated(generator, batch, 3, 20.0)
+  assert splat_cuda.EXACT_LAUNCHES == exact + 3
+  assert splat_cuda.LAUNCHES == fast
+
+
+@pytest.mark.cuda
+def test_serving_proj_depth_equals_the_cpu_on_unmoved_pixels(card):
+  """The serving splat stage on one memory, on the card and on the CPU:
+  proj_depth, a square root and a divide, is bit-equal on every pixel
+  that no point entered or left (trigonometry differs by ULPs between the
+  card and the CPU) and that holds no point whose radius the CPU's
+  torch.sqrt rounds off the correctly rounded one; the guidance moves on
+  at most 0.5% of the pixels."""
+  model = inference.SE3DSModel(model_config.get_test_config(), device=card)
+  rs = np.random.RandomState(2)
+  model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
+                      rs.randint(0, 42, (1, 32, 64, 1)),
+                      rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  model(np.array([[0.2, 0.05, 0.0]], np.float32), add_preds_to_memory=True)
+  live = model._live_memory(model.get_memory_state(), 2, 1)
+  host = live._replace(**{k: v.cpu() for k, v in live._asdict().items()
+                          if k != 'cursor'})
+  position = torch.tensor([[0.3, -0.1, 0.05]])
+  ref = inference.memory_project(host, position, 32, 64, 20.0)
+  got = inference.memory_project(live, position.to(card), 32, 64, 20.0)
+  moved = ((got[2].cpu() != ref[2]).any(-1) | (got[0].cpu() != ref[0])[..., 0]
+           | (got[3].cpu() != ref[3])[..., 0])
+  # The pixels an RGB point enters or leaves between the two devices' view
+  # coordinates, and those of the points whose radius the CPU's torch.sqrt
+  # does not round correctly (numpy's float32 sqrt, as the card's, does).
+  offset = torch.cat([position, torch.zeros((1, 1))], 1)
+  flats = [splat.pixel_coords(geometry.equirect_view_coords(
+      x - offset.to(x.device)[..., None]), f, 32, 64, -1.0)[0].cpu()
+           for x, f in ((live.rgb_coords, live.rgb), (host.rgb_coords,
+                                                      host.rgb))]
+  rel = host.rgb_coords - offset[..., None]
+  sq = rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1] + rel[:, 2] * rel[:, 2]
+  sqrt_off = torch.sqrt(sq) != torch.from_numpy(np.sqrt(sq.numpy()))
+  apart = torch.zeros((1, 32 * 64 + 1), dtype=torch.bool)
+  for points, sources in ((flats[0] != flats[1], flats),
+                          (sqrt_off, flats[1:])):
+    for flat in sources:
+      apart.scatter_(1, torch.where(points, flat, 32 * 64), True)
+  print(f'moved {int(moved.sum())} of {moved.numel()} pixels')
+  assert moved.float().mean() <= 0.005
+  moved |= apart[:, :-1].reshape(1, 32, 64)
+  assert torch.equal(got[1].cpu()[~moved], ref[1][~moved])

@@ -44,13 +44,21 @@ def test_port_files_found():
 
 
 def test_kernel_build_flags():
-  """sm_90a, IEEE division and no FMA contraction (the kernel's floats
-  round like the plain version's), never fast math."""
+  """sm_90a, IEEE division and square root, never fast math, and nvcc's
+  default -fmad=true, as PyTorch's own kernels build (the math library's
+  atan2f/acosf then give PyTorch's bits). The sources keep every other
+  float rounding like the plain version's with round-to-nearest
+  intrinsics, which are never contracted (csrc/pixel.cuh)."""
   flags = ' '.join(cuda_build.NVCC_FLAGS)
   assert 'arch=compute_90a,code=sm_90a' in flags
-  assert '-fmad=false' in flags
-  assert 'fast_math' not in flags and 'prec-div=false' not in flags
+  assert '-fmad' not in flags
+  for bad in ('fast_math', 'prec-div=false', 'prec-sqrt=false'):
+    assert bad not in flags
   assert cuda_build.sources() == ['splat.cu', 'splat_exact.cu']
+  header = (cuda_build.CSRC_DIR / 'pixel.cuh').read_text()
+  for intrinsic in ('__fadd_rn', '__fsub_rn', '__fmul_rn', '__fdiv_rn',
+                    '__fsqrt_rn'):
+    assert intrinsic in header
 
 
 def test_library_name_follows_the_source():

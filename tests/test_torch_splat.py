@@ -218,3 +218,25 @@ def test_unported_splat_modes_raise():
     with pytest.raises(NotImplementedError):
       geometry_t.project_feats_to_equirectangular(feats, xyz, 8, 16, -1.0,
                                                   20.0, splat_mode=mode)
+
+
+@pytest.mark.parametrize('mode', ['fast', None])
+def test_memory_splat_at_an_offset_is_subtract_then_project(mode):
+  """`project_memory_equirect` on the CPU is the translated copy through
+  `project_feats_to_equirectangular`, bit for bit; without the depth it
+  returns None for it. Tolerance: none."""
+  rs = np.random.RandomState(12)
+  xyz = torch.from_numpy(rs.uniform(-5, 5, (BATCH, 4, 600)).astype(
+      np.float32))
+  xyz[:, 3] = 1.0
+  feats = torch.from_numpy(rs.randint(-1, 256, (BATCH, 600, 3)).astype(
+      np.float32))
+  offset = torch.tensor([[0.5, -0.25, 0.1, 0.0], [-1.0, 0.3, 0.0, 0.0]])
+  got = geometry_t.project_memory_equirect(feats, xyz, offset, H, W, -1.0,
+                                           DEPTH_SCALE, mode)
+  want = geometry_t.project_feats_to_equirectangular(
+      feats, xyz - offset[..., None], H, W, -1.0, DEPTH_SCALE, mode)
+  assert all(torch.equal(a, b) for a, b in zip(got, want))
+  depth, feat = geometry_t.project_memory_equirect(
+      feats, xyz, offset, H, W, -1.0, DEPTH_SCALE, mode, need_depth=False)
+  assert depth is None and torch.equal(feat, want[1])
