@@ -245,16 +245,20 @@ def fast_stage(geometry, xyz, feats, offset, void, need_depth,
 
 
 def fast_timings(splat_cuda, geometry, xyz, feats, offset, void, need_depth):
-  """Device ms of the point pass and of the resolve, the whole stage
-  (events, and device ms), the plain version (events) and the bound, at
-  full width."""
+  """Device ms of the point pass (and of the same pass over precomputed
+  view coordinates, which leaves out the prelude's arithmetic) and of the
+  resolve, the whole stage (events, and device ms), the plain version
+  (events) and the bound, at full width."""
   kernel, plain = fast_stage(geometry, xyz, feats, offset, void,
                              need_depth)
   words = lambda: splat_cuda.fast_words(xyz, feats, H, W, DEPTH_SCALE, void,
                                         offset=offset, need_depth=need_depth)
   done = words()
+  view = geometry.equirect_view_coords(xyz - offset[..., None])
   return {
       'point': device_ms(words),
+      'view_point': device_ms(lambda: splat_cuda.fast_words(
+          view, feats, H, W, DEPTH_SCALE, void, need_depth=need_depth)),
       'resolve': device_ms(lambda: splat_cuda.fast_resolve(
           done, feats.shape[-1], DEPTH_SCALE, 0.0)),
       'stage': time_ms(kernel, reps=50),
@@ -264,8 +268,9 @@ def fast_timings(splat_cuda, geometry, xyz, feats, offset, void, need_depth):
 
 
 def log_timings(name, t, power):
-  log(f'  {name}: point pass {t["point"]:.4f} ms, resolve '
-      f'{t["resolve"]:.4f} ms (device), whole stage {t["stage"]:.4f} ms '
+  log(f'  {name}: point pass {t["point"]:.4f} ms ({t["view_point"]:.4f} ms '
+      f'on precomputed view coordinates), resolve {t["resolve"]:.4f} ms '
+      f'(device), whole stage {t["stage"]:.4f} ms '
       f'(events; {t["stage_device"]:.4f} ms device), plain {t["plain"]:.4f} '
       f'ms, bound {t["bound"]:.4f} ms ({power})')
 
@@ -521,16 +526,20 @@ def exact_stage(geometry, xyz, feats, offset, void, out_void, height=H,
 
 
 def exact_timings(splat_cuda, geometry, xyz, feats, offset, void, out_void):
-  """Device ms of the cooperative launch and of the resolve, the whole
-  stage (events, and device ms), the plain version (events), the bound,
+  """Device ms of the cooperative launch (and of the same launch over
+  precomputed view coordinates) and of the resolve, the whole stage
+  (events, and device ms), the plain version (events), the bound,
   and the device ms of the 'fast' point pass on the same points (one
   read of them and one atomic per point), at full width."""
   kernel, plain = exact_stage(geometry, xyz, feats, offset, void, out_void)
   words = lambda: splat_cuda.exact_words(xyz, feats, H, W, DEPTH_SCALE, void,
                                          offset=offset)
   done = words()
+  view = geometry.equirect_view_coords(xyz - offset[..., None])
   return {
       'point': device_ms(words),
+      'view_point': device_ms(lambda: splat_cuda.exact_words(
+          view, feats, H, W, DEPTH_SCALE, void)),
       'resolve': device_ms(lambda: splat_cuda.exact_resolve(
           done, DEPTH_SCALE, out_void)),
       'stage': time_ms(kernel, reps=20),

@@ -33,10 +33,16 @@
 //
 // The second read. Both passes run in ONE persistent cooperative launch
 // (cudaLaunchCooperativeKernel, a grid of as many blocks as fit on the
-// card at once) that walks the batch elements in turn: pass 1 over
-// element b, a grid-wide sync, pass 2 over element b in the reverse order
-// of pass 1, so that it meets first in the 50 MB L2 what pass 1 read
-// last, and a sync again.
+// card at once): pass 1 over every batch element, one grid-wide sync,
+// then pass 2 in the reverse order of pass 1 (the last element first,
+// its last point first), so that it meets first in the 50 MB L2 what
+// pass 1 read last. Two alternatives measured slower on an H100 at batch
+// 8, C=3 and 0.5M-2.1M points per element: walking the elements one at a
+// time with a sync after each pass (so that pass 2 could find a whole
+// element, 37.7 MB at the rollout's largest frame, in L2; the L2 did not
+// hold the second read well enough to pay for 2*B grid syncs), and
+// checking a pixel's word before each atomic. Caching each point's pixel
+// in pass 1 instead of recomputing it gained nothing measurable.
 //
 // What bounds it: the function reads 12 + 4*C bytes per point and writes
 // 4 + 4*C per pixel; the atomics resolve in L2 (one per valid point, then
@@ -78,13 +84,12 @@ __global__ void __launch_bounds__(256)
   const int channels = clouds.channels;
   const int64_t stride = 1 + channels;
   const int64_t num_points = clouds.num_points;
+  const int64_t per_element = (int64_t)clouds.height * clouds.width * stride;
   const int64_t threads = (int64_t)gridDim.x * blockDim.x;
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  cg::grid_group grid = cg::this_grid();
   for (int b = 0; b < args.batch; ++b) {
     const se3ds::Cloud<kEquirect> cloud(clouds, b);
-    uint32_t* w = args.words +
-                  (int64_t)b * clouds.height * clouds.width * stride;
+    uint32_t* w = args.words + b * per_element;
     for (int64_t i = first; i < num_points; i += threads) {
       int64_t flat;
       float z;
@@ -93,8 +98,13 @@ __global__ void __launch_bounds__(256)
       }
       atomicMin(w + flat * stride, __float_as_uint(z));
     }
-    grid.sync();
-    // Reverse order: point M-1-i for the i of pass 1.
+  }
+  cg::this_grid().sync();
+  // Reverse order: the last element first, point M-1-i for the i of
+  // pass 1.
+  for (int b = args.batch - 1; b >= 0; --b) {
+    const se3ds::Cloud<kEquirect> cloud(clouds, b);
+    uint32_t* w = args.words + b * per_element;
     for (int64_t i = first; i < num_points; i += threads) {
       const int64_t j = num_points - 1 - i;
       int64_t flat;
@@ -111,7 +121,6 @@ __global__ void __launch_bounds__(256)
                   ~order_key(cloud.feats[j * channels + c]));
       }
     }
-    grid.sync();
   }
 }
 

@@ -80,9 +80,9 @@ def project_feats_to_equirectangular(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Projects point-cloud features into an equirectangular image.
 
-  On CUDA tensors this is `project_memory_equirect` at a zero offset (the
-  kernels compute the view coordinates); on CPU tensors the plain path,
-  `equirect_view_coords` then the splat's plain version.
+  This is `project_memory_equirect` at a zero offset: on CUDA tensors the
+  kernels compute the view coordinates; on CPU tensors the plain path,
+  `equirect_view_coords` then the splat's plain version (x - 0 == x).
 
   Args:
     feats: (N, M) or (N, M, C) point features.
@@ -98,15 +98,9 @@ def project_feats_to_equirectangular(
     reprojected_depth: (N, H, W) depth in [0, 1].
     reprojected_feats: (N, H, W[, C]) feature image.
   """
-  exact = _is_exact(splat_mode)
-  if xyz1.is_cuda:
-    return project_memory_equirect(
-        feats, xyz1, torch.zeros((1, 4), dtype=xyz1.dtype, device=xyz1.device),
-        height, width, void_class, depth_scale, splat_mode)
-  splat_fn = (splat.project_to_feat_plain if exact
-              else splat.project_to_feat_fast_plain)
-  return splat_fn(equirect_view_coords(xyz1), feats.to(xyz1.dtype), height,
-                  width, depth_scale=depth_scale, input_void_class=void_class)
+  offset = torch.zeros((1, 4), dtype=xyz1.dtype, device=xyz1.device)
+  return project_memory_equirect(feats, xyz1, offset, height, width,
+                                 void_class, depth_scale, splat_mode)
 
 
 def project_memory_equirect(
@@ -122,11 +116,10 @@ def project_memory_equirect(
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
   """The memory's equirect guidance seen from a camera at `offset`.
 
-  `project_feats_to_equirectangular(feats, xyz1 - offset[..., None], ...)`
-  without the translated copy: on CUDA tensors the splat kernels read the
-  world points and the offset and compute the view coordinates in
-  registers (`splat.splat_images`); CPU tensors take
-  `project_memory_equirect_plain`, which is that call.
+  On CUDA tensors the splat kernels read the world points and the offset
+  and compute the view coordinates in registers (`splat.splat_images`):
+  no translated copy or view tensor is written. CPU tensors take
+  `project_memory_equirect_plain`.
 
   Args:
     feats, height, width, void_class, depth_scale, splat_mode: as
@@ -163,8 +156,8 @@ def project_memory_equirect_plain(
     splat_mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch version of `project_memory_equirect` on any device:
-  the translated copy, `equirect_view_coords` and the splat's plain
-  version (what the CPU runs)."""
+  the translated copy `xyz1 - offset`, `equirect_view_coords` and the
+  splat's plain version (what the CPU runs)."""
   splat_fn = (splat.project_to_feat_plain if _is_exact(splat_mode)
               else splat.project_to_feat_fast_plain)
   return splat_fn(equirect_view_coords(xyz1 - offset[..., None]),

@@ -77,19 +77,18 @@ _ARGTYPES = {
 }
 
 
-def _library(source: str) -> ctypes.CDLL:
-  lib = cuda_build.load(source)
-  for name, argtypes in _ARGTYPES.items():
-    fn = getattr(lib, name, None)
-    if fn is not None and fn.argtypes is None:
-      fn.argtypes = argtypes
-      fn.restype = ctypes.c_int
-  return lib
+_FUNCTIONS = {}
 
 
 def _call(source: str, name: str, *args) -> None:
-  """Calls a launcher on the current stream; raises on a CUDA error."""
-  fn = getattr(_library(source), name)
+  """Calls a launcher of csrc/<source> on the current stream; raises on a
+  CUDA error. The library is built at first use."""
+  fn = _FUNCTIONS.get(name)
+  if fn is None:
+    fn = getattr(cuda_build.load(source), name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    _FUNCTIONS[name] = fn
   err = fn(*args, torch.cuda.current_stream().cuda_stream)
   if err != 0:
     raise RuntimeError(f'{name} failed with CUDA error {err}')
