@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port of SE3DS (serving and FID eval) on one
-NVIDIA card.
+"""Drives the PyTorch/CUDA port of SE3DS (serving, FID eval and GAN
+training) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -44,13 +44,26 @@ Phases, in order; any failure raises and the process exits non-zero:
      (finite FID, RMSE and IS); the stage against its plain version on
      the rollout's own inputs, timed; the test config's rollout on the
      card against the CPU.
+  7. Full-width lowres training: `Trainer.train` at the lowres recipe's
+     values (256x128, G gen_dims=128 ResNet-101, D dis_dims=128 n_dis=2
+     n_layers=6, float32 with cuDNN's TF32 convolutions), 16 examples a
+     chunk, random weights from seed 0 and synthetic batches, 4 steps of
+     one cluster each: every metric finite, G and D parameters moved, the
+     EMA equal to G after the assign step and not after the decay steps,
+     ms per step, peak device memory, the final checkpoint (written,
+     sized, deleted), then the 'train' image grid.
+  7b. The tests' tiny trainer: one train step on the card (TF32 off)
+     against the CPU and against the CPU in float64, within stated
+     tolerances, and a checkpoint round trip on the card, bit-equal.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import copy
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +79,7 @@ DEPTH_SCALE = 20.0
 SPLAT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:87'
 EXACT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:204'
 EVAL_BATCH, EVAL_FRAMES = 8, 4  # one card's share of highres test_batch_size
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
 
 
 START = time.perf_counter()
@@ -821,6 +835,228 @@ def phase_eval_small_vs_cpu(inference, model_config):
       raise AssertionError('card and CPU rollouts disagree')
 
 
+TRAIN_CHUNK = 16  # one card's share of lowres train_batch_size=128 on 8
+TRAIN_STEPS = 4  # one warm-up step and 3 timed steps
+
+
+def phase_train(power):
+  log('== phase 7: full-width lowres training (256x128, gen_dims 128, '
+      'ResNet-101, D dis_dims 128 n_dis 2 n_layers 6, float32) ==')
+  import tempfile
+  from se3ds_torch.models import discriminator as disc_lib
+  from se3ds_torch.models import generator as gen_lib
+  from se3ds_torch.train import checkpoints as ckpt_lib
+  from se3ds_torch.train import state as state_lib
+  from se3ds_torch.train import trainer as trainer_lib
+  torch.backends.cudnn.allow_tf32 = True
+  log('  TF32 on for cuDNN convolutions (PyTorch\'s default; matmuls stay '
+      'float32)')
+  torch.cuda.empty_cache()
+  torch.cuda.reset_peak_memory_stats()
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  model_dir = tempfile.mkdtemp(prefix='train_', dir=BUILD_DIR)
+  trainer = trainer_lib.Trainer(
+      model_dir, train_batch_size=TRAIN_CHUNK, num_batched_steps=1,
+      log_every_steps=1, save_every_steps=10 * TRAIN_STEPS,
+      generator_fn=lambda: gen_lib.ResNetGenerator(
+          spectral_fold=False, **trainer_lib.LOWRES_GENERATOR),
+      discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
+          **trainer_lib.LOWRES_DISCRIMINATOR),
+      device='cuda', **trainer_lib.LOWRES)
+  batches = trainer_lib.synthetic_batches(
+      2 * TRAIN_CHUNK, trainer_lib.LOWRES['image_size'], 0)
+
+  # Watch the trainer's own cluster calls: time each (synchronised), keep
+  # its metrics, and check the parameters and the EMA around them.
+  cluster = state_lib.train_cluster
+  seen = {'ms': [], 'metrics': []}
+
+  def watched(state, stacked, hp):
+    if not seen['ms']:  # host copies: they must not count in the peak
+      seen['before'] = {
+          'g': [p.detach().to('cpu', copy=True)
+                for p in state.generator.parameters()],
+          'd': [p.detach().to('cpu', copy=True)
+                for p in state.discriminator.parameters()]}
+      seen['params'] = (
+          sum(p.numel() for p in state.generator.parameters()),
+          sum(p.numel() for p in state.discriminator.parameters()))
+    sync()
+    t0 = time.perf_counter()
+    metrics = cluster(state, stacked, hp)
+    sync()
+    seen['ms'].append((time.perf_counter() - t0) * 1e3)
+    seen['metrics'].append({k: float(v) for k, v in metrics.items()})
+    ema_equal = all(torch.equal(e, g) for e, g in zip(
+        [*state.ema.parameters(), *state.ema.buffers()],
+        [*state.generator.parameters(), *state.generator.buffers()]))
+    seen.setdefault('ema_equal', []).append(ema_equal)
+    return metrics
+
+  save = ckpt_lib.CheckpointManager.save
+
+  def timed_save(manager, step, state):
+    t0 = time.perf_counter()
+    save(manager, step, state)
+    seen['save_s'] = time.perf_counter() - t0
+
+  state_lib.train_cluster = watched
+  ckpt_lib.CheckpointManager.save = timed_save
+  t0 = time.perf_counter()
+  try:
+    state = trainer.train(batches, TRAIN_STEPS)
+  finally:
+    state_lib.train_cluster = cluster
+    ckpt_lib.CheckpointManager.save = save
+  sync()
+  train_s = time.perf_counter() - t0
+  peak = torch.cuda.max_memory_allocated()
+  g_params, d_params = seen['params']
+  log(f'  parameters: G {g_params:,}, D {d_params:,}')
+  for i, (ms, metrics) in enumerate(zip(seen['ms'], seen['metrics'])):
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad:
+      raise AssertionError(f'step {i}: non-finite metrics {bad}')
+    log(f'  step {i}{" (warm-up)" if i == 0 else ""}: {ms:.2f} ms; ' +
+        ', '.join(f'{k} {v:.6g}' for k, v in sorted(metrics.items())))
+  timed = seen['ms'][1:]
+  log(f'  ms per step of {2 * TRAIN_CHUNK} examples ({TRAIN_CHUNK} per '
+      f'chunk, 1 D-only + 1 G+D update), 3 timed steps: {timed} -> median '
+      f'{statistics.median(timed):.2f} ms, '
+      f'{2 * TRAIN_CHUNK / statistics.median(timed) * 1e3:.2f} examples/sec '
+      f'({power})')
+  log(f'  peak device memory {peak / 2**30:.2f} GiB; Trainer.train '
+      f'{train_s:.2f} s, of which its final checkpoint {seen["save_s"]:.2f} s')
+  moved = {}
+  for part, module in (('g', state.generator), ('d', state.discriminator)):
+    deltas = [float((p.detach().cpu() - q).abs().max())
+              for p, q in zip(module.parameters(), seen['before'][part])]
+    moved[part] = sum(d > 0 for d in deltas)
+    log(f'  {part.upper()}: {moved[part]} of {len(deltas)} parameter '
+        f'tensors moved, largest change {max(deltas):.3g}')
+    if moved[part] < 0.9 * len(deltas):
+      raise AssertionError(f'{part} parameters did not move')
+  if seen['ema_equal'] != [True, False, False, False]:
+    raise AssertionError(f'EMA equal to G after each step: '
+                         f'{seen["ema_equal"]}, expected the assign step '
+                         'then the decay steps')
+  log('  EMA equals G after step 0 (assign) and differs after steps 1-3 '
+      '(decay)')
+  del seen['before']
+
+  steps = ckpt_lib.CheckpointManager(model_dir).all_steps()
+  size = sum(os.path.getsize(os.path.join(root, f))
+             for root, _, files in os.walk(model_dir) for f in files)
+  if steps != [TRAIN_STEPS] or not os.path.exists(
+      os.path.join(model_dir, 'TRAIN_DONE')):
+    raise AssertionError(f'checkpoints {steps}, TRAIN_DONE missing?')
+  log(f'  final checkpoint at step {steps[0]}: {size / 2**30:.2f} GiB on disk'
+      ' (with the event file), TRAIN_DONE written')
+  shutil.rmtree(model_dir)
+
+  t0 = time.perf_counter()
+  grid = trainer.get_image_grid(state, next(batches))
+  grid_s = time.perf_counter() - t0
+  for key, image in grid.items():
+    if image.dtype != np.uint8 or image.shape[0] != 1:
+      raise AssertionError(f'{key}: {image.shape} {image.dtype}')
+  log(f'  train image grid: {len(grid)} images of '
+      f'{grid["train_raw_generated"].shape[1:]} in {grid_s:.2f} s')
+  torch.backends.cudnn.allow_tf32 = False
+  del state, trainer
+  torch.cuda.empty_cache()
+
+
+def tiny_trainer(device, model_dir):
+  """The trainer at the sizes of tests/test_train.py."""
+  from se3ds_torch.models import discriminator as disc_lib
+  from se3ds_torch.models import generator as gen_lib
+  from se3ds_torch.train import trainer as trainer_lib
+  return trainer_lib.Trainer(
+      model_dir, image_size=32, seed=0, beta1=0.5, g_lr=1e-4, d_lr=4e-4,
+      train_batch_size=2, d_step_per_g_step=2, num_batched_steps=2,
+      predict_depth=True, mask_blurred=True,
+      generator_fn=lambda: gen_lib.ResNetGenerator(
+          gen_dims=2, z_dim=2, resnet_version='tiny', spectral_fold=False),
+      discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
+          n_dis=2, dis_dims=2, n_layers=3),
+      device=device)
+
+
+# Card against the CPU after one tiny train step, TF32 off. At this size
+# the train-mode BatchNorms normalise over 4 elements per channel at the
+# 1x2 bottleneck, which amplifies float32 rounding: on these inputs the
+# port's own float32 step on the CPU differs from its float64 step by
+# 7e-4 to 1.4e-3 of the largest first Adam moment and by up to 1e-4 in
+# the gradient-norm metric, by CPU and PyTorch version (the phase prints
+# it). Tolerances: the moments 3e-3 of the largest,
+# the metrics rtol 1e-3, parameters 1e-5 (a tenth of G's Adam step)
+# where |first moment| >= 1e-3 of the largest (state_differences),
+# BatchNorm statistics and u 1e-5.
+TINY_TOLERANCES = {'params': 1e-5, 'stats': 1e-5, 'u': 1e-5,
+                   'exp_avg': 3e-3, 'exp_avg_sq': 3e-3, 'adam_steps': 0.0}
+TINY_METRIC_RTOL = 1e-3
+
+
+def phase_train_small_vs_cpu():
+  log('== phase 7b: tiny train step, card against the CPU (TF32 off) ==')
+  import tempfile
+  from se3ds_torch.train import checkpoints as ckpt_lib
+  from se3ds_torch.train import state as state_lib
+  from se3ds_torch.train import trainer as trainer_lib
+  torch.backends.cudnn.allow_tf32 = False
+  model_dir = tempfile.mkdtemp(prefix='train_tiny_', dir=BUILD_DIR)
+  trainers = [tiny_trainer(d, model_dir) for d in ('cpu', 'cuda')]
+  states = [t.create_state() for t in trainers]
+  ckpt_lib.load_bundle(states[1], ckpt_lib.state_bundle(states[0]))
+  start = copy.deepcopy(ckpt_lib.state_bundle(states[0]))
+  batch = next(trainer_lib.synthetic_batches(4, 32, 1))
+  metrics = [state_lib.train_step(s, t.device_batch(batch), t.hp)
+             for s, t in zip(states, trainers)]
+  # The same step on the CPU in float64: the float32 rounding of this
+  # computation, which the tolerances are set from.
+  exact = trainers[0].create_state()
+  ckpt_lib.load_bundle(exact, start)
+  for module in (exact.generator, exact.discriminator, exact.ema):
+    module.double()
+  exact.generator.dtype = exact.ema.dtype = torch.float64
+  exact.g_opt, exact.d_opt = state_lib.make_optimizers(
+      exact.generator, exact.discriminator, 1e-4, 4e-4, 0.5, 0.999)
+  exact_metrics = state_lib.train_step(exact, {
+      k: v.double() for k, v in trainers[0].device_batch(batch).items()},
+                                       trainers[0].hp)
+  for name, (got, want, a, b) in (
+      ('CPU float32 against float64', (metrics[0], exact_metrics,
+                                       states[0], exact)),
+      ('card against the CPU', (metrics[1], metrics[0], states[1],
+                                states[0]))):
+    rel = {k: abs(float(got[k]) - float(want[k]))
+           / max(abs(float(want[k])), 1e-6) for k in want}
+    diffs = state_lib.state_differences(a, b)
+    log(f'  {name}: metrics, largest relative difference '
+        f'{max(rel.values()):.3g} ({max(rel, key=rel.get)}); state: '
+        + ', '.join(f'{k} {v:.3g}' for k, v in sorted(diffs.items())))
+  over = [k for k, v in rel.items() if v > TINY_METRIC_RTOL] + [
+      k for k, v in diffs.items()
+      if v > TINY_TOLERANCES.get(k.split('_', 1)[-1], float('inf'))]
+  if over:
+    raise AssertionError(f'card and CPU train steps disagree: {over}')
+  log(f'  within tolerances: metrics rtol {TINY_METRIC_RTOL}, '
+      f'{TINY_TOLERANCES}')
+
+  manager = ckpt_lib.CheckpointManager(model_dir)
+  manager.save(states[1].step, states[1])
+  restored = trainers[1].create_state()
+  manager.restore(restored)
+  saved, back = (ckpt_lib.state_bundle(s) for s in (states[1], restored))
+  if not ckpt_lib.bundles_equal(saved, back):
+    raise AssertionError('checkpoint round trip on the card is not '
+                         'bit-equal')
+  log(f'  checkpoint round trip on the card at step {restored.step}: every '
+      'tensor torch.equal')
+  shutil.rmtree(model_dir)
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -859,6 +1095,8 @@ def main():
   exact_launches, rollout_err, exact = phase_eval(
       inference, model_config, splat_cuda, power)
   phase_eval_small_vs_cpu(inference, model_config)
+  phase_train(power)
+  phase_train_small_vs_cpu()
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']

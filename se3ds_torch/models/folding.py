@@ -1,22 +1,31 @@
-"""Weights for the port's generator: the Flax bridge and random init.
+"""Weights for the port's models: the Flax bridge, random init and the
+fold from the trainable form to the serving form.
 
 `torch_state_dict_from_flax` converts the JAX package's variable trees
 ({'params', 'batch_stats', 'spectral'}, as numpy arrays or anything
 `np.asarray` reads) into the port's `state_dict`:
 
-* Every SpectralConv kernel is divided by (sigma + eps) in float32, with
-  the math of `layers.spectral_normalize` (one power iteration from the
-  stored `u`). The SpectralConvs are found from the port's own module
-  classes: PartialConv kernels also carry a `u` in the reference, but
-  their raw kernel is what the reference convolves with, so they stay
-  raw. Without a 'spectral' collection the kernels are taken as already
-  folded (the JAX `fold_spectral_variables` output).
+* A folded SpectralConv's kernel (`fold=True`, the serving form) is
+  divided by (sigma + eps) in float32, with the math of
+  `layers.spectral_normalize` (one power iteration from the stored `u`).
+  The folded SpectralConvs are found from the port's own modules:
+  PartialConv kernels also carry a `u` in the reference, but their raw
+  kernel is what the reference convolves with, so they stay raw. Without
+  a 'spectral' collection the kernels are taken as already folded (the
+  JAX `fold_spectral_variables` output).
+* A module that holds a `u` buffer (an unfolded SpectralConv, or an
+  unfolded PartialConv with spectral_norm) gets its raw kernel and its
+  `u` from the 'spectral' collection.
 * Conv kernels go from HWIO to OIHW; Flax ConvTranspose kernels
   (kh, kw, in, out) go to PyTorch's (in, out, kh, kw) with a spatial flip.
-* BatchNorm scale/bias/mean/var become weight/bias/running_mean/var.
+* BatchNorm scale/bias/mean/var become weight/bias/running_mean/var;
+  InstanceNorm gamma/beta become weight/bias.
 
-`init_random_` gives a fresh generator Keras-style random weights from a
-`torch.Generator` and folds them the same way.
+`load_train_state_from_flax` carries a whole JAX `TrainState` (G, D, EMA,
+both Adam states, the step) into the port's `train.state.TrainState`.
+`serving_state_dict` folds a trained generator into the serving form.
+`init_random_` gives fresh models Keras-style random weights from a
+`torch.Generator`.
 """
 
 from __future__ import annotations
@@ -29,6 +38,10 @@ import torch
 from torch import nn
 
 from se3ds_torch.models import layers
+
+_LEAF_NAMES = {'kernel': 'weight', 'scale': 'weight', 'gamma': 'weight',
+               'bias': 'bias', 'beta': 'bias', 'mean': 'running_mean',
+               'var': 'running_var', 'u': 'u'}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -44,21 +57,20 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
 
 
 def spectral_conv_names(model: nn.Module) -> set:
-  """Module names of every SpectralConv in `model`."""
+  """Module names of every folded SpectralConv in `model`."""
   return {name for name, m in model.named_modules()
-          if isinstance(m, layers.SpectralConv)}
+          if isinstance(m, layers.SpectralConv) and m.fold}
+
+
+def power_iteration_names(model: nn.Module) -> set:
+  """Module names of every module with a power-iteration buffer `u`."""
+  return {name for name, m in model.named_modules()
+          if getattr(m, 'u', None) is not None}
 
 
 def fold_kernel(kernel_oihw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-  """Divides an OIHW kernel by (sigma + eps) from one power iteration.
-
-  The flattened (K, O) layout differs from the JAX package's HWIO one
-  only by a row permutation, which leaves sigma unchanged.
-  """
-  out = kernel_oihw.shape[0]
-  w_flat = kernel_oihw.reshape(out, -1).T.to(torch.float32)
-  w_norm, _, _ = layers.spectral_normalize(w_flat, u.to(torch.float32))
-  return w_norm.T.reshape(kernel_oihw.shape)
+  """Divides an OIHW kernel by (sigma + eps) from one power iteration."""
+  return layers.normalized_kernel(kernel_oihw, u)[0]
 
 
 def torch_kernel_from_flax(kernel: np.ndarray, transposed: bool
@@ -73,35 +85,98 @@ def torch_kernel_from_flax(kernel: np.ndarray, transposed: bool
   return torch.from_numpy(np.ascontiguousarray(kernel))
 
 
+def torch_tensors_from_flax(tree: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+  """Every leaf of a Flax tree (params, a collection, or an optimizer
+  moment shaped like params) under the port's state_dict key, converted
+  to the port's layout and nothing else (no fold)."""
+  out = {}
+  for (*module_path, leaf), value in _flatten(tree).items():
+    name = '.'.join(p for p in module_path if p not in ('bn', 'convt'))
+    key = '.'.join(filter(None, (name, _LEAF_NAMES[leaf])))
+    if leaf == 'kernel':
+      out[key] = torch_kernel_from_flax(value, 'convt' in module_path)
+    else:
+      out[key] = torch.from_numpy(np.array(value))
+  return out
+
+
 def torch_state_dict_from_flax(variables: Mapping[str, Any],
                                model: nn.Module) -> Dict[str, torch.Tensor]:
-  """The port's state_dict from the JAX package's generator variables.
+  """The port's state_dict from the JAX package's variables.
 
   Args:
     variables: {'params', 'batch_stats'[, 'spectral']} trees.
-    model: the port's generator the state_dict is for; its SpectralConv
-      modules decide which kernels are folded.
+    model: the port's module the state_dict is for; its folded
+      SpectralConvs decide which kernels are folded, its `u` buffers which
+      power-iteration states are carried.
   """
-  spectral_names = spectral_conv_names(model)
-  params = _flatten(variables['params'])
-  stats = _flatten(variables.get('batch_stats', {}))
-  spectral = _flatten(variables.get('spectral', {}))
-  state = {}
-  for path, value in {**params, **stats}.items():
-    *module_path, leaf = path
-    transposed = 'convt' in module_path
-    name = '.'.join(p for p in module_path if p not in ('bn', 'convt'))
-    if leaf == 'kernel':
-      weight = torch_kernel_from_flax(value, transposed)
-      if name in spectral_names and spectral:
-        u = torch.from_numpy(spectral[tuple(module_path) + ('u',)])
-        weight = fold_kernel(weight, u)
-      state[f'{name}.weight'] = weight
-    else:
-      key = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
-             'var': 'running_var'}[leaf]
-      state[f'{name}.{key}'] = torch.from_numpy(value)
+  folded = spectral_conv_names(model)
+  with_u = power_iteration_names(model)
+  spectral = torch_tensors_from_flax(variables.get('spectral', {}))
+  state = torch_tensors_from_flax(variables['params'])
+  state.update(torch_tensors_from_flax(variables.get('batch_stats', {})))
+  for key, value in spectral.items():
+    name = key[:-len('.u')]
+    if name in with_u:
+      state[key] = value
+    elif name in folded:
+      state[f'{name}.weight'] = fold_kernel(state[f'{name}.weight'], value)
   return state
+
+
+def serving_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+  """The state_dict of the serving (`spectral_fold=True`) form of a
+  trainable generator: each unfolded SpectralConv's kernel divided by
+  sigma from its stored `u` (what its eval forward convolves with), and
+  no `u` buffers."""
+  state = {k: v for k, v in model.state_dict().items()
+           if not k.endswith('.u')}
+  for name, module in model.named_modules():
+    if isinstance(module, layers.SpectralConv) and not module.fold:
+      state[f'{name}.weight'] = fold_kernel(module.weight.detach(),
+                                            module.u).to(module.weight.dtype)
+  return state
+
+
+def adam_state_from_flax(optimizer: torch.optim.Optimizer,
+                         model: nn.Module, adam: Mapping[str, Any]) -> None:
+  """Sets `optimizer`'s per-parameter state from an optax Adam state
+  {'mu', 'nu', 'count'} (trees shaped like the Flax params of `model`)."""
+  params = dict(model.named_parameters())
+  mu = torch_tensors_from_flax(adam['mu'])
+  nu = torch_tensors_from_flax(adam['nu'])
+  if mu.keys() != params.keys():
+    raise ValueError(f'Adam state and {type(model).__name__} differ: '
+                     f'{sorted(mu.keys() ^ params.keys())[:5]}')
+  step = float(np.asarray(adam['count']))
+  for name, param in params.items():
+    optimizer.state[param] = {
+        'step': torch.tensor(step, dtype=torch.float32),
+        'exp_avg': mu[name].to(param.device),
+        'exp_avg_sq': nu[name].to(param.device)}
+
+
+def load_train_state_from_flax(state, flax_state: Mapping[str, Any]) -> None:
+  """Carries a JAX `TrainState` into the port's `TrainState`, in place.
+
+  Args:
+    state: a `se3ds_torch.train.state.TrainState` of the same models.
+    flax_state: the JAX state as numpy trees: 'step', 'g_params',
+      'g_state' ({'batch_stats', 'spectral'}), 'd_params', 'd_state'
+      ({'spectral'}), 'ema_params', 'ema_state', and 'g_opt_state' /
+      'd_opt_state' as {'mu', 'nu', 'count'} of the optax Adam state.
+  """
+  for model, params, collections in (
+      (state.generator, 'g_params', 'g_state'),
+      (state.discriminator, 'd_params', 'd_state'),
+      (state.ema, 'ema_params', 'ema_state')):
+    model.load_state_dict(torch_state_dict_from_flax(
+        {'params': flax_state[params], **flax_state[collections]}, model))
+  adam_state_from_flax(state.g_opt, state.generator, flax_state['g_opt_state'])
+  adam_state_from_flax(state.d_opt, state.discriminator,
+                       flax_state['d_opt_state'])
+  state.step = int(np.asarray(flax_state['step']))
 
 
 @torch.no_grad()
@@ -109,11 +184,13 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
   """Keras-style random weights in place, then the spectral fold.
 
   Kernels are glorot-uniform (fans over the receptive field), biases and
-  BatchNorm shifts zero, BatchNorm scales and variances one, and each
-  SpectralConv gets a power-iteration state u ~ N(0, 0.05) truncated at
-  two standard deviations, as the Flax initialisers draw them.
+  norm shifts zero, norm scales and variances one (as constructed), and
+  each spectral conv gets a power-iteration state u ~ N(0, 0.05)
+  truncated at two standard deviations, as the Flax initialisers draw
+  them: stored in its `u` buffer, or folded into a folded SpectralConv's
+  kernel.
   """
-  spectral_names = spectral_conv_names(model)
+  folded = spectral_conv_names(model)
   device = generator.device
   for name, module in model.named_modules():
     weight = getattr(module, 'weight', None)
@@ -128,8 +205,11 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> None:
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     value = torch.empty(weight.shape, device=device).uniform_(
         -limit, limit, generator=generator)
-    if name in spectral_names:
+    if name in folded or getattr(module, 'u', None) is not None:
       u = torch.empty((1, weight.shape[0]), device=device)
       nn.init.trunc_normal_(u, std=0.05, a=-0.1, b=0.1, generator=generator)
-      value = fold_kernel(value, u)
+      if name in folded:
+        value = fold_kernel(value, u)
+      else:
+        module.u.copy_(u)
     weight.copy_(value)

@@ -1,4 +1,4 @@
-"""SE3DS generator, eval forward (port of `se3ds_tpu.models.generator`).
+"""SE3DS generator (port of `se3ds_tpu.models.generator`).
 
 A ResNet encoder with partial convs over the guidance RGB-D (+ blurred
 mask), a 4-conv spectral global context at the bottleneck, and two
@@ -6,6 +6,13 @@ decoders (RGB and depth) sharing the encoder skips. The generator takes
 and returns NHWC tensors and runs NCHW inside. The 7-output contract
 [mu, logvar, kld, depth, seg, depth_seg, rgb] is kept; mu, logvar, kld
 and the two seg outputs are all zero in this release.
+
+`spectral_fold=True` (the default) is the serving form: every spectral
+kernel divided by sigma at load, eval only. `spectral_fold=False` is the
+trainable form: spectral convs hold their power-iteration state `u` and
+the module trains (`.train()`: zero padding, batch statistics, `u`
+stored) or evaluates (`.eval()`: circular padding, running statistics,
+one power iteration per call, equal to the folded form).
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ class ResNetEncoder(nn.Module):
   """Encoder; returns (hidden, [b1, s1, s2, s3])."""
 
   def __init__(self, in_features: int, hidden_dims: int = 64,
-               resnet_version: str = '50', circular_pad: bool = False):
+               resnet_version: str = '50', circular_pad: bool = False,
+               spectral: bool = True, fold: bool = True):
     super().__init__()
     _check_version(resnet_version)
     filters = RESNET_ENCODER_FILTERS[resnet_version]
@@ -59,7 +67,7 @@ class ResNetEncoder(nn.Module):
     for i, (in_f, inplanes, planes, blocks, strides) in enumerate(specs):
       self.add_module(f'stack{i + 1}', layers.ResStack(
           in_f, inplanes, planes, blocks, strides=strides,
-          circular_pad=circular_pad))
+          circular_pad=circular_pad, spectral=spectral, fold=fold))
     self.final_conv = layers.PartialConv(32 * h, 4 * h, 3, 1, 'VALID',
                                          fused_pad=1, circular=circular_pad)
     self.final_bn = layers.SyncBatchNorm(4 * h)
@@ -87,12 +95,12 @@ class ResNetDecoder(nn.Module):
 
   def __init__(self, output_dim: int, hidden_dims: int = 64,
                resnet_version: str = '50', circular_pad: bool = False,
-               spectral: bool = True):
+               spectral: bool = True, fold: bool = True):
     super().__init__()
     _check_version(resnet_version)
     filters = RESNET_DECODER_FILTERS[resnet_version]
     h = hidden_dims
-    conv = layers.SpectralConv if spectral else layers.Conv2D
+    conv = layers.conv_fn(spectral, fold)
     self.upc_conv = conv(4 * h, 2 * h, 1, 1, 'SAME')
     self.upc_bn = layers.SyncBatchNorm(2 * h)
     # Skip agents: (name, input width, output width).
@@ -100,15 +108,16 @@ class ResNetDecoder(nn.Module):
               ('agent2', 8 * h, 2 * h), ('agent1', 4 * h, h),
               ('agent0', h, h)]
     for name, in_f, out_f in agents:
-      self.add_module(name, layers.PartialConv(in_f, out_f, 1, 1, 'SAME',
-                                               use_bias=False))
+      self.add_module(name, layers.PartialConv(
+          in_f, out_f, 1, 1, 'SAME', use_bias=False, spectral_norm=spectral,
+          fold=fold))
       self.add_module(f'{name}_bn', layers.SyncBatchNorm(out_f))
     stages = [(8 * h, 4 * h, filters[0], 1), (4 * h, 2 * h, filters[1], 2),
               (2 * h, h, filters[2], 2), (h, h, filters[3], 2)]
     for i, (inplanes, planes, blocks, strides) in enumerate(stages):
       self.add_module(f'deconv{i + 1}', layers.ResStackTranspose(
           inplanes, planes, blocks, strides=strides,
-          circular_pad=circular_pad, spectral=spectral))
+          circular_pad=circular_pad, spectral=spectral, fold=fold))
     # final_conv uses plain Conv2D in the reference.
     self.final_conv = layers.ResStackTranspose(h, h, 3,
                                                circular_pad=circular_pad,
@@ -133,9 +142,10 @@ class ResNetDecoder(nn.Module):
 class _ConvChain(nn.Module):
   """(BN, circular 3x3 conv, LeakyReLU 0.3) chain; no activation last."""
 
-  def __init__(self, widths: List[int], circular_pad: bool, spectral: bool):
+  def __init__(self, widths: List[int], circular_pad: bool, spectral: bool,
+               fold: bool = True):
     super().__init__()
-    conv = layers.SpectralConv if spectral else layers.Conv2D
+    conv = layers.conv_fn(spectral, fold)
     self.num_convs = len(widths) - 1
     for i in range(self.num_convs):
       self.add_module(f'bn{i}', layers.SyncBatchNorm(widths[i]))
@@ -156,18 +166,18 @@ class OutputHead(_ConvChain):
   """3x(BN, pad, conv3x3) head (reference rgb_conv/depth_conv)."""
 
   def __init__(self, hidden_dims: int, out_channels: int, circular_pad: bool,
-               spectral: bool = True):
+               spectral: bool = True, fold: bool = True):
     super().__init__([hidden_dims, hidden_dims, hidden_dims, out_channels],
-                     circular_pad, spectral)
+                     circular_pad, spectral, fold)
 
 
 class GlobalContext(_ConvChain):
   """4-layer spectral-conv context stack at the bottleneck."""
 
-  def __init__(self, hidden_dims: int, circular_pad: bool):
+  def __init__(self, hidden_dims: int, circular_pad: bool, fold: bool = True):
     h = hidden_dims
     super().__init__([4 * h, 4 * h, 8 * h, 4 * h, 4 * h], circular_pad,
-                     spectral=True)
+                     spectral=True, fold=fold)
 
 
 def _nchw(x):
@@ -179,7 +189,7 @@ def _nhwc(x):
 
 
 class ResNetGenerator(nn.Module):
-  """RGB-D pano generator (reference ResNetGenerator), eval only.
+  """RGB-D pano generator (reference ResNetGenerator).
 
   Call with a dict of NHWC conditions:
     proj_image: (N, H, W, 3) guidance RGB in [0, 1].
@@ -195,25 +205,28 @@ class ResNetGenerator(nn.Module):
   def __init__(self, gen_dims: int = 96, z_dim: int = 128,
                resnet_version: str = '50', context_layer: str = 'convs',
                conv_mode: str = 'spectral', use_blurred_mask: bool = True,
+               spectral_fold: bool = True,
                dtype: torch.dtype = torch.float32):
     super().__init__()
     if context_layer not in ('convs', 'none'):
       raise NotImplementedError(context_layer)
     spectral = conv_mode == 'spectral'
+    fold = spectral_fold
     circular_pad = True
     h = gen_dims
     self.z_dim = z_dim
     self.use_blurred_mask = use_blurred_mask
     self.dtype = dtype
     self.encoder = ResNetEncoder(5 if use_blurred_mask else 4, h,
-                                 resnet_version, circular_pad)
-    self.global_context = (GlobalContext(h, circular_pad)
+                                 resnet_version, circular_pad, spectral, fold)
+    self.global_context = (GlobalContext(h, circular_pad, fold)
                            if context_layer == 'convs' else None)
-    self.decoder = ResNetDecoder(h, h, resnet_version, circular_pad, spectral)
+    self.decoder = ResNetDecoder(h, h, resnet_version, circular_pad, spectral,
+                                 fold)
     self.depth_decoder = ResNetDecoder(h, h, resnet_version, circular_pad,
-                                       spectral)
-    self.rgb_conv = OutputHead(h, 3, circular_pad, spectral)
-    self.depth_conv = OutputHead(h, 1, circular_pad, spectral)
+                                       spectral, fold)
+    self.rgb_conv = OutputHead(h, 3, circular_pad, spectral, fold)
+    self.depth_conv = OutputHead(h, 1, circular_pad, spectral, fold)
 
   def forward(self, cond: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
     guidance_depth = cond['proj_depth']
@@ -222,6 +235,11 @@ class ResNetGenerator(nn.Module):
       parts.append(cond['blurred_mask'])
     combined = _nchw(torch.cat(parts, dim=-1).to(self.dtype))
     mask = _nchw(cond['proj_mask'].to(self.dtype))
+    if self.training:
+      # Contiguous NCHW, not the permuted (channels_last) view: PyTorch's
+      # CPU (oneDNN) backward of a strided 1x1 convolution crashes on
+      # channels_last input with more than two threads (PyTorch 2.13).
+      combined, mask = combined.contiguous(), mask.contiguous()
 
     hidden, skip = self.encoder(combined, mask)
     if self.global_context is not None:

@@ -1,15 +1,26 @@
-"""Generator building blocks, eval forward only (port of
+"""Generator and discriminator building blocks (port of
 `se3ds_tpu.models.layers`).
 
-All tensors here are NCHW; `generator.ResNetGenerator` permutes from and
-to the NHWC layout of the public API. Module and attribute names copy the
-Flax names (`conv1`, `act1_bn`, `block{i}`, `main_convt`, ...), so the
-state_dict keys of `folding.torch_state_dict_from_flax` follow the Flax
-variable paths.
+All tensors here are NCHW; `generator.ResNetGenerator` and the
+discriminators permute from and to the NHWC layout of the public API.
+Module and attribute names copy the Flax names (`conv1`, `act1_bn`,
+`block{i}`, `main_convt`, ...), so the state_dict keys of
+`folding.torch_state_dict_from_flax` follow the Flax variable paths.
 
-Circular (width-wrap) padding is the eval behaviour of the reference;
-each conv pads its own input here, which equals the JAX package's
-wrap-once chains (circular convolution commutes with the wrap).
+Train and eval mode is the module's `self.training`, the Flax `train`
+argument:
+
+* Circular (width-wrap) padding is the eval behaviour of the reference;
+  in training every pad is zeros, masks included. Each conv pads its own
+  input here, which equals the JAX package's wrap-once chains (circular
+  convolution commutes with the wrap).
+* A `SpectralConv` is folded (`fold=True`: the serving form, the kernel
+  divided by sigma at load) or unfolded: a power-iteration state `u`,
+  one iteration per call with a gradient through sigma, `u` stored only
+  in training. An unfolded `PartialConv` with `spectral_norm` keeps its
+  inert `u` up to date in training and convolves with the raw kernel.
+* `SyncBatchNorm` normalises with the batch statistics in training and
+  updates its running statistics by Flax's rule.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.99  # Flax/Keras: r = 0.99 * r + 0.01 * batch statistic.
 
 IntPair = Union[int, Tuple[int, int]]
 
@@ -121,13 +133,32 @@ def spectral_normalize(w_flat: torch.Tensor, u: torch.Tensor,
     w_norm: (K, O) kernel divided by (sigma + eps).
     u_hat: (1, O) updated state.
     sigma: (1, 1) estimated top singular value.
+
+  The power iteration is outside the gradient (the JAX version's
+  `stop_gradient` on u_hat and v_hat): sigma's gradient flows through
+  w_flat alone.
   """
-  v = u @ w_flat.T
-  v_hat = v / (torch.linalg.norm(v) + eps)
-  u_new = v_hat @ w_flat
-  u_hat = u_new / (torch.linalg.norm(u_new) + eps)
+  with torch.no_grad():
+    w = w_flat.detach()
+    v = u @ w.T
+    v_hat = v / (torch.linalg.norm(v) + eps)
+    u_new = v_hat @ w
+    u_hat = u_new / (torch.linalg.norm(u_new) + eps)
   sigma = (v_hat @ w_flat) @ u_hat.T
   return w_flat / (sigma + eps), u_hat, sigma
+
+
+def normalized_kernel(weight: torch.Tensor, u: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(OIHW kernel / (sigma + eps), u_hat) from one power iteration.
+
+  The flattened (K, O) layout differs from the JAX package's HWIO one
+  only by a row permutation, which leaves sigma unchanged. Float32.
+  """
+  out = weight.shape[0]
+  w_flat = weight.reshape(out, -1).T.to(torch.float32)
+  w_norm, u_hat, _ = spectral_normalize(w_flat, u.to(torch.float32))
+  return w_norm.T.reshape(weight.shape), u_hat
 
 
 class _Conv(nn.Module):
@@ -146,32 +177,58 @@ class _Conv(nn.Module):
     self.weight = nn.Parameter(torch.empty(features, in_features, kh, kw))
     self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-  def _conv(self, x: torch.Tensor) -> torch.Tensor:
-    weight = self.weight.to(x.dtype)
+  @property
+  def wraps(self) -> bool:
+    """Circular width padding: at eval only."""
+    return self.circular and not self.training
+
+  def _conv(self, x: torch.Tensor,
+            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    weight = (self.weight if weight is None else weight).to(x.dtype)
     if self.fused_pad:
       return circular_conv2d(x, weight, self.strides, self.fused_pad,
-                             self.circular)
+                             self.wraps)
     kh, kw = weight.shape[-2:]
     x = _pad_for(x, kh, kw, self.strides, self.padding, 0, False)
     return F.conv2d(x, weight, stride=self.strides)
+
+  def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
+    if self.bias is None:
+      return out
+    return out + self.bias.to(out.dtype)[:, None, None]
 
 
 class Conv2D(_Conv):
   """Plain Conv2D (glorot kernel, zero bias)."""
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    out = self._conv(x)
-    if self.bias is not None:
-      out = out + self.bias.to(out.dtype)[:, None, None]
-    return out
+    return self._add_bias(self._conv(x))
 
 
-class SpectralConv(Conv2D):
-  """Spectral-normalised Conv2D in its folded form.
+class SpectralConv(_Conv):
+  """Spectral-normalised Conv2D (Miyato et al.).
 
-  At eval the power-iteration state never updates, so the kernel is
-  divided by (sigma + eps) once at load (`folding.fold_spectral_`).
+  Folded (`fold=True`, the serving form): at eval the power-iteration
+  state never updates, so the kernel was divided by (sigma + eps) once at
+  load (`folding.torch_state_dict_from_flax`, `folding.serving_state_dict`).
+  Unfolded: each call runs one power iteration from the buffer `u`
+  (1, O) and convolves with kernel / (sigma + eps); `u` is stored only in
+  training.
   """
+
+  def __init__(self, *args, fold: bool = True, **kwargs):
+    super().__init__(*args, **kwargs)
+    self.fold = fold
+    self.register_buffer(
+        'u', None if fold else torch.empty(1, self.weight.shape[0]))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    if self.fold:
+      return self._add_bias(self._conv(x))
+    weight, u_hat = normalized_kernel(self.weight, self.u)
+    if self.training:
+      self.u.copy_(u_hat)
+    return self._add_bias(self._conv(x, weight))
 
 
 class PartialConv(_Conv):
@@ -179,8 +236,17 @@ class PartialConv(_Conv):
 
   Convolves with the RAW kernel even where the reference keeps a
   spectral-norm state: the reference computes the normalised kernel but
-  never uses it, so nothing is folded here. Returns (out, update_mask).
+  never uses it, so nothing is folded here. With `spectral_norm` and
+  `fold=False` the module keeps that inert state, a buffer `u`, and
+  updates it in training. Returns (out, update_mask).
   """
+
+  def __init__(self, *args, spectral_norm: bool = False, fold: bool = True,
+               **kwargs):
+    super().__init__(*args, **kwargs)
+    self.register_buffer(
+        'u', torch.empty(1, self.weight.shape[0])
+        if spectral_norm and not fold else None)
 
   def forward(self, feature: torch.Tensor,
               mask: Optional[torch.Tensor] = None
@@ -188,10 +254,13 @@ class PartialConv(_Conv):
     kh, kw = self.weight.shape[-2:]
     if mask is None:
       mask = torch.ones_like(feature[:, :1])
+    if self.u is not None and self.training:
+      with torch.no_grad():
+        self.u.copy_(normalized_kernel(self.weight, self.u)[1])
     eps = 1e-6
     update_mask = mask_window_sum(mask, kh, kw, self.strides,
                                   fused_pad=self.fused_pad,
-                                  circular=self.circular,
+                                  circular=self.wraps,
                                   padding=self.padding)
     mask_ratio = (kh * kw) / (update_mask + eps)
     update_mask = torch.clamp(update_mask, 0.0, 1.0)
@@ -254,7 +323,15 @@ class Conv2DTranspose(nn.Module):
 
 
 class SyncBatchNorm(nn.Module):
-  """BatchNorm at eval: the stored statistics, eps 1e-3 (Keras)."""
+  """BatchNorm, eps 1e-3 (Keras), over (N, H, W).
+
+  Eval: the stored statistics. Training: the batch mean and the biased
+  batch variance normalise; then, as Flax's `nn.BatchNorm` does,
+  r = 0.99 * r + 0.01 * batch for both running statistics, with the
+  biased variance (PyTorch's own update uses momentum 0.1 and the
+  unbiased variance). Flax computes the variance as E[x^2] - E[x]^2
+  clipped at 0; this is the two-pass value, equal up to rounding.
+  """
 
   def __init__(self, features: int):
     super().__init__()
@@ -264,8 +341,32 @@ class SyncBatchNorm(nn.Module):
     self.register_buffer('running_var', torch.ones(features))
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                        self.bias, training=False, eps=BN_EPSILON)
+    if not self.training:
+      return F.batch_norm(x, self.running_mean, self.running_var,
+                          self.weight, self.bias, training=False,
+                          eps=BN_EPSILON)
+    with torch.no_grad():
+      var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+      for stat, value in ((self.running_mean, mean), (self.running_var, var)):
+        stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * value)
+    return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                        eps=BN_EPSILON)
+
+
+class InstanceNorm(nn.Module):
+  """Instance normalisation (tfa InstanceNormalization defaults): the
+  biased variance over (H, W) per example and channel, eps 1e-3, a
+  per-channel scale and shift (Flax `gamma`, `beta`)."""
+
+  def __init__(self, features: int, epsilon: float = 1e-3):
+    super().__init__()
+    self.epsilon = epsilon
+    self.weight = nn.Parameter(torch.ones(features))
+    self.bias = nn.Parameter(torch.zeros(features))
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                           eps=self.epsilon)
 
 
 def max_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
@@ -281,23 +382,41 @@ def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
   return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
+def avg_pool_3x3_stride2_same(x: torch.Tensor) -> torch.Tensor:
+  """tf.nn.avg_pool(ksize=3, strides=2, padding='SAME').
+
+  TF's SAME pad is asymmetric (0 before and 1 after at an even size) and
+  the divisor counts only the in-bounds elements of each window, so a
+  symmetric `count_include_pad=False` pool is not it.
+  """
+  top, bottom = _same_pads(x.shape[-2], 3, 2)
+  left, right = _same_pads(x.shape[-1], 3, 2)
+  pads = (left, right, top, bottom)
+  window_sum = lambda t: F.avg_pool2d(F.pad(t, pads), 3, 2,
+                                      divisor_override=1)
+  return window_sum(x) / window_sum(torch.ones_like(x[:1, :1]))
+
+
 class Bottleneck(nn.Module):
   """ResNet bottleneck with mask threading."""
 
   def __init__(self, in_features: int, filters: int, strides: int = 1,
                expansion: int = 4, has_downsample: bool = False,
-               circular_pad: bool = False):
+               circular_pad: bool = False, spectral: bool = False,
+               fold: bool = True):
     super().__init__()
-    self.conv1 = PartialConv(in_features, filters, 1, 1, 'SAME')
+    partial = lambda *a, **k: PartialConv(*a, spectral_norm=spectral,
+                                          fold=fold, **k)
+    self.conv1 = partial(in_features, filters, 1, 1, 'SAME')
     self.act1_bn = SyncBatchNorm(filters)
-    self.conv2 = PartialConv(filters, filters, 3, strides, 'VALID',
-                             fused_pad=1, circular=circular_pad)
+    self.conv2 = partial(filters, filters, 3, strides, 'VALID',
+                         fused_pad=1, circular=circular_pad)
     self.act2_bn = SyncBatchNorm(filters)
-    self.conv3 = PartialConv(filters, expansion * filters, 1, 1, 'SAME')
+    self.conv3 = partial(filters, expansion * filters, 1, 1, 'SAME')
     self.act3_bn = SyncBatchNorm(expansion * filters)
     if has_downsample:
-      self.downsample = PartialConv(in_features, expansion * filters, 1,
-                                    strides, 'SAME', use_bias=False)
+      self.downsample = partial(in_features, expansion * filters, 1,
+                                strides, 'SAME', use_bias=False)
       self.ds_norm = SyncBatchNorm(expansion * filters)
     else:
       self.downsample = None
@@ -325,7 +444,8 @@ class ResStack(nn.Module):
 
   def __init__(self, in_features: int, inplanes: int, planes: int,
                blocks: int, strides: int = 1, expansion: int = 4,
-               circular_pad: bool = False):
+               circular_pad: bool = False, spectral: bool = False,
+               fold: bool = True):
     super().__init__()
     has_downsample = strides != 1 or inplanes != planes * expansion
     self.num_blocks = blocks
@@ -334,7 +454,7 @@ class ResStack(nn.Module):
           in_features if i == 0 else planes * expansion, planes,
           strides=strides if i == 0 else 1, expansion=expansion,
           has_downsample=has_downsample and i == 0,
-          circular_pad=circular_pad))
+          circular_pad=circular_pad, spectral=spectral, fold=fold))
 
   def forward(self, x, mask=None):
     for i in range(self.num_blocks):
@@ -342,8 +462,10 @@ class ResStack(nn.Module):
     return x, mask
 
 
-def _conv_fn(spectral: bool):
-  return SpectralConv if spectral else Conv2D
+def conv_fn(spectral: bool, fold: bool = True):
+  if spectral:
+    return lambda *a, **k: SpectralConv(*a, fold=fold, **k)
+  return Conv2D
 
 
 class TransBasicBlock(nn.Module):
@@ -351,9 +473,9 @@ class TransBasicBlock(nn.Module):
 
   def __init__(self, inplanes: int, planes: int, strides: int = 1,
                has_upsample: bool = False, circular_pad: bool = False,
-               spectral: bool = False):
+               spectral: bool = False, fold: bool = True):
     super().__init__()
-    conv = _conv_fn(spectral)
+    conv = conv_fn(spectral, fold)
     self.main_conv1 = conv(inplanes, inplanes, 3, 1, 'VALID', use_bias=False,
                            fused_pad=1, circular=circular_pad)
     self.main_bn1 = SyncBatchNorm(inplanes)
@@ -390,16 +512,17 @@ class ResStackTranspose(nn.Module):
 
   def __init__(self, inplanes: int, planes: int, blocks: int,
                strides: int = 1, circular_pad: bool = False,
-               spectral: bool = False):
+               spectral: bool = False, fold: bool = True):
     super().__init__()
     self.num_blocks = blocks
     for i in range(blocks - 1):
       self.add_module(f'block{i}', TransBasicBlock(
-          inplanes, inplanes, circular_pad=circular_pad, spectral=spectral))
+          inplanes, inplanes, circular_pad=circular_pad, spectral=spectral,
+          fold=fold))
     self.add_module(f'block{blocks - 1}', TransBasicBlock(
         inplanes, planes, strides=strides,
         has_upsample=strides != 1 or inplanes != planes,
-        circular_pad=circular_pad, spectral=spectral))
+        circular_pad=circular_pad, spectral=spectral, fold=fold))
 
   def forward(self, x):
     for i in range(self.num_blocks):

@@ -1,0 +1,139 @@
+"""Where a lowres train step's time goes on the card (PyTorch profiler).
+
+    python -m se3ds_torch.profile_training [--chunk 16] [--steps 2] [--top 15]
+
+Builds the lowres recipe's trainer at full width (256x128 panoramas,
+G gen_dims=128 ResNet-101, D dis_dims=128 n_dis=2 n_layers=6, float32
+with TF32 convolutions, random weights from seed 0, `--chunk` examples
+per chunk), warms up with two `train_step`s on one synthetic batch, then
+profiles `--steps` more. Prints the host wall and the device's busy time
+and idle share; for each part of the step (the D-only step, each D
+update, each backward, each clip, each Adam step, the EMA) its
+calls, its host time and the device time of the kernels it launched
+(parts nest: a D update is inside the D-only step); the device time by
+kernel (top `--top`) and the device operations per step, with the card's
+name and power limit. Needs a CUDA card.
+"""
+
+import argparse
+import contextlib
+import subprocess
+import tempfile
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from se3ds_torch.models import discriminator as disc_lib
+from se3ds_torch.models import generator as gen_lib
+from se3ds_torch.train import losses as losses_lib
+from se3ds_torch.train import state as state_lib
+from se3ds_torch.train import trainer as trainer_lib
+
+# (module, function name, range name): the parts of a step.
+PARTS = ((state_lib, 'train_d_step', 'D-only step'),
+         (state_lib, '_update_discriminator', 'D update'),
+         (state_lib, '_gradients', 'backward (autograd.grad)'),
+         (state_lib, '_apply_gradients', 'Adam'),
+         (losses_lib, 'clip_grad_per_leaf', 'clip'),
+         (state_lib, 'update_ema', 'EMA'))
+
+
+@contextlib.contextmanager
+def _ranges():
+  """Wraps each part of the step in a profiler range while inside."""
+  saved = [(module, name, getattr(module, name))
+           for module, name, _ in PARTS]
+
+  def ranged(fn, label):
+    def call(*args, **kwargs):
+      with record_function(label):
+        return fn(*args, **kwargs)
+    return call
+
+  for (module, name, fn), (_, _, label) in zip(saved, PARTS):
+    setattr(module, name, ranged(fn, label))
+  try:
+    yield [label for _, _, label in PARTS]
+  finally:
+    for module, name, fn in saved:
+      setattr(module, name, fn)
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--chunk', type=int, default=16)
+  parser.add_argument('--steps', type=int, default=2)
+  parser.add_argument('--top', type=int, default=15)
+  args = parser.parse_args()
+  if not torch.cuda.is_available():
+    raise SystemExit('profile_training needs a CUDA card.')
+  power = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+  torch.backends.cudnn.allow_tf32 = True
+  with tempfile.TemporaryDirectory() as model_dir:
+    trainer = trainer_lib.Trainer(
+        model_dir, train_batch_size=args.chunk,
+        generator_fn=lambda: gen_lib.ResNetGenerator(
+            spectral_fold=False, **trainer_lib.LOWRES_GENERATOR),
+        discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
+            **trainer_lib.LOWRES_DISCRIMINATOR),
+        device='cuda', **trainer_lib.LOWRES)
+  state = trainer.create_state()
+  batch = trainer.device_batch(next(trainer_lib.synthetic_batches(
+      2 * args.chunk, trainer_lib.LOWRES['image_size'], 0)))
+  step = lambda: state_lib.train_step(state, batch, trainer.hp)
+  for _ in range(2):
+    step()
+  torch.cuda.synchronize()
+
+  with _ranges() as labels, profile(activities=[
+      ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+      step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+
+  cuda = torch.autograd.DeviceType.CUDA
+  averages = prof.key_averages()
+  # Device work only: kernels, memsets and copies, not the device-side
+  # rows of ranges (the ranges above, the optimizer's own).
+  events = [e for e in averages if e.device_type == cuda
+            and e.self_device_time_total > 0 and e.key not in labels
+            and not getattr(e, 'is_user_annotation', False)
+            and not e.key.startswith('Optimizer.')]
+  events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+  device_us = sum(e.self_device_time_total for e in events)
+  print(power)
+  print(f'{args.steps} steps of {2 * args.chunk} examples: wall '
+        f'{wall_us / 1e3 / args.steps:.2f} ms/step, device busy '
+        f'{device_us / 1e3 / args.steps:.2f} ms/step, idle share '
+        f'{max(0.0, 1 - device_us / wall_us):.3f}')
+  if not events:
+    print('the profiler recorded no device time')
+    return
+  parts = {e.key: e for e in averages
+           if e.key in labels and e.device_type != cuda}
+  for label in labels:
+    part = parts.get(label)
+    if part is None:
+      print(f'  {label}: not recorded')
+      continue
+    print(f'  {label}: {part.count / args.steps:.0f} calls/step, host '
+          f'{part.cpu_time_total / 1e3 / args.steps:.2f} ms/step, device '
+          f'{part.device_time_total / 1e3 / args.steps:.2f} ms/step')
+  print(f'{"device ms/step":>15} {"share":>7} {"calls":>6}  kernel')
+  for e in events[:args.top]:
+    print(f'{e.self_device_time_total / 1e3 / args.steps:15.3f} '
+          f'{e.self_device_time_total / device_us:7.3f} {e.count:6d}  '
+          f'{e.key[:90]}')
+  print(f'device operations per step: '
+        f'{sum(e.count for e in events) / args.steps:.0f}')
+  print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}'
+        ' GiB')
+
+
+if __name__ == '__main__':
+  main()

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, against their plain versions.
+"""The CUDA kernels on the card, against their plain versions, and the
+training slice on the card against the CPU.
 
 These tests need an NVIDIA card and nvcc (a CUDA kernel has no CPU mode)
 and skip elsewhere. They import no JAX, so they run where the port runs:
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from se3ds_torch.eval import metrics
+from se3ds_torch.models import discriminator as discriminator_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import inference
@@ -20,6 +22,9 @@ from se3ds_torch.models import model_config
 from se3ds_torch.ops import geometry
 from se3ds_torch.ops import splat
 from se3ds_torch.ops import splat_cuda
+from se3ds_torch.train import checkpoints
+from se3ds_torch.train import state as state_lib
+from se3ds_torch.train import trainer as trainer_lib
 
 
 @pytest.fixture
@@ -270,3 +275,77 @@ def test_serving_proj_depth_equals_the_cpu_on_unmoved_pixels(card):
   assert moved.float().mean() <= 0.005
   moved |= apart[:, :-1].reshape(1, 32, 64)
   assert torch.equal(got[1].cpu()[~moved], ref[1][~moved])
+
+
+# -- training -----------------------------------------------------------------
+
+
+def _tiny_trainer(model_dir, device=None):
+  """The trainer at the sizes of tests/test_train.py."""
+  return trainer_lib.Trainer(
+      str(model_dir), image_size=32, seed=0, beta1=0.5, g_lr=1e-4, d_lr=4e-4,
+      train_batch_size=2, d_step_per_g_step=2, num_batched_steps=2,
+      predict_depth=True, mask_blurred=True,
+      generator_fn=lambda: generator_lib.ResNetGenerator(
+          gen_dims=2, z_dim=2, resnet_version='tiny', spectral_fold=False),
+      discriminator_fn=lambda: discriminator_lib.SNMultiScaleDiscriminator(
+          n_dis=2, dis_dims=2, n_layers=3),
+      device=device)
+
+
+def _train_batch(seed):
+  rs = np.random.RandomState(seed)
+  batch = {'image': rs.rand(4, 32, 64, 3),
+           'depth': rs.uniform(-0.1, 1.1, (4, 32, 64, 1)),
+           'proj_image': rs.rand(4, 32, 64, 3),
+           'proj_depth': rs.rand(4, 32, 64, 1),
+           'proj_mask': rs.rand(4, 32, 64, 1) > 0.3,
+           'blurred_mask': rs.rand(4, 32, 64, 1) > 0.9}
+  return {k: v.astype(np.float32) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(card, tmp_path, monkeypatch):
+  """One tiny train step from the same state on the card (TF32 off) and
+  on the CPU. Tolerances as chip_smoke.py's TINY_TOLERANCES (the port's
+  own float32 step differs from its float64 step by up to ~1e-3 of the
+  largest first Adam moment on this batch): metrics rtol 1e-3, Adam
+  moments 3e-3 of the largest, parameters 1e-5 where |first moment| >=
+  1e-3 of the largest, BatchNorm statistics and u 1e-5."""
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+  trainers = [_tiny_trainer(tmp_path, d) for d in ('cpu', card)]
+  assert trainers[1].device.type == 'cuda'
+  states = [t.create_state() for t in trainers]
+  checkpoints.load_bundle(states[1], checkpoints.state_bundle(states[0]))
+  batch = _train_batch(1)
+  metrics = [state_lib.train_step(s, t.device_batch(batch), t.hp)
+             for s, t in zip(states, trainers)]
+  for key, value in metrics[0].items():
+    np.testing.assert_allclose(float(metrics[1][key]), float(value),
+                               rtol=1e-3, atol=1e-7, err_msg=key)
+  tolerances = {'params': 1e-5, 'stats': 1e-5, 'u': 1e-5, 'exp_avg': 3e-3,
+                'exp_avg_sq': 3e-3, 'adam_steps': 0.0}
+  diffs = state_lib.state_differences(states[1], states[0])
+  for key, value in diffs.items():
+    kind = key.split('_', 1)[-1]
+    assert value <= tolerances.get(kind, float('inf')), (key, value)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(card, tmp_path):
+  """A trainer on the card by default; its state after a step saved and
+  restored into a fresh state is bit-equal, tensors on the same devices
+  (the optimizers' step counts stay on the CPU)."""
+  trainer = _tiny_trainer(tmp_path)
+  assert trainer.device.type == 'cuda'
+  state = trainer.create_state()
+  state_lib.train_step(state, trainer.device_batch(_train_batch(2)),
+                       trainer.hp)
+  manager = checkpoints.CheckpointManager(str(tmp_path))
+  manager.save(state.step, state)
+  restored = trainer.create_state()
+  manager.restore(restored)
+  assert checkpoints.bundles_equal(checkpoints.state_bundle(state),
+                                   checkpoints.state_bundle(restored))
+  step_devices = {s['step'].device.type for s in restored.g_opt.state.values()}
+  assert step_devices == {'cpu'}

@@ -83,7 +83,7 @@ def test_partial_conv_uses_raw_kernel(kernel, strides, fused_pad, use_bias):
   port.weight.data = _hwio_to_oihw(params['kernel'])
   if use_bias:
     port.bias.data = torch.from_numpy(params['bias'])
-  out, new_mask = port(_nchw(x), _nchw(mask))
+  out, new_mask = port.eval()(_nchw(x), _nchw(mask))
   np.testing.assert_allclose(_nhwc(out), np.asarray(ref_out), atol=ATOL,
                              rtol=0)
   np.testing.assert_array_equal(_nhwc(new_mask), np.asarray(ref_mask))

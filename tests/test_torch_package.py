@@ -40,7 +40,14 @@ def test_port_files_found():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
   assert {'se3ds_torch/ops/splat_cuda.py', 'se3ds_torch/models/inference.py',
           'se3ds_torch/eval/metrics.py', 'se3ds_torch/eval/inception.py',
-          'se3ds_torch/eval/fid.py', 'chip_smoke.py'} <= names
+          'se3ds_torch/eval/fid.py', 'se3ds_torch/models/discriminator.py',
+          'se3ds_torch/train/losses.py', 'se3ds_torch/train/state.py',
+          'se3ds_torch/train/checkpoints.py', 'se3ds_torch/train/trainer.py',
+          'se3ds_torch/utils/logger.py', 'se3ds_torch/utils/task_manager.py',
+          'se3ds_torch/utils/image_grid.py',
+          'se3ds_torch/utils/parameter_overview.py',
+          'se3ds_torch/data/png.py', 'se3ds_torch/data/tfrecord.py',
+          'se3ds_torch/data/example_pb.py', 'chip_smoke.py'} <= names
 
 
 def test_kernel_build_flags():
