@@ -36,14 +36,13 @@ Phases, in order; any failure raises and the process exits non-zero:
      and 8, batch slices of a larger memory). Times the cooperative
      launch, the resolve, the whole stage, the plain version, and the
      'fast' point pass on the same points as the cost of one read.
-  6. Full-width FID eval: ResNetGenerator(gen_dims=128, ResNet-101) in
-     bf16 from a seeded generator, 1024x512, batch 8, T=4, the exact
-     splat: rollout_generated (shapes, finite values, proj_mask coverage,
-     exactly 1 exact launch per frame and no 'fast' one), then
-     EvalMetric(eval_num=8, batch_size=8, avg_num=1).calculate_fid_score
-     (finite FID, RMSE and IS); the stage against its plain version on
+  6. Full-width FID-eval rollout: ResNetGenerator(gen_dims=128,
+     ResNet-101) in bf16 from a seeded generator, 1024x512, batch 8, T=4,
+     the exact splat: rollout_generated (shapes, finite values, proj_mask
+     coverage, exactly 1 exact launch per frame and no 'fast' one),
+     Inception's time per batch; the stage against its plain version on
      the rollout's own inputs, timed; the test config's rollout on the
-     card against the CPU.
+     card against the CPU. (The FID runs in phase 8.)
   7. Full-width lowres training: `Trainer.train` at the lowres recipe's
      values (256x128, G gen_dims=128 ResNet-101, D dis_dims=128 n_dis=2
      n_layers=6, float32 with cuDNN's TF32 convolutions), 16 examples a
@@ -55,6 +54,18 @@ Phases, in order; any failure raises and the process exits non-zero:
   7b. The tests' tiny trainer: one train step on the card (TF32 off)
      against the CPU and against the CPU in float64, within stated
      tolerances, and a checkpoint round trip on the card, bit-equal.
+  8. The system's own entry point on the lowres recipe: fixture TFRecords
+     written by `se3ds_torch.data.synthetic` in worker processes (image
+     pairs at the recipe's stored 1024x2048, videos at 128x256), host ms
+     per example to decode and transform on each record path, then
+     `python -m se3ds_torch.main --mode TRAIN` with configs/lowres/lowres.gin
+     at full width (4 steps of 2 chunks of 16, one ~17 GiB save) in a
+     subprocess, and `se3ds_torch.main.main(['--mode', 'TEST', ...])` in
+     this process: it finds the step-4 checkpoint by polling, evaluates it
+     (image grid, PNG dumps, FID/RMSE/IS through two calculate_fid_score
+     calls) with exactly 24 exact-splat launches; finite scores at @1..@3
+     in scores_val_seen.csv, every PNG there, the parameters moved, and one
+     display-batch rollout frame's guidance equal to the plain version.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -79,7 +90,9 @@ DEPTH_SCALE = 20.0
 SPLAT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:87'
 EXACT_REPLACES = 'se3ds_tpu/ops/splat_pallas.py:204'
 EVAL_BATCH, EVAL_FRAMES = 8, 4  # one card's share of highres test_batch_size
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build')
+REPO = os.path.dirname(os.path.abspath(__file__))
+BUILD_DIR = os.path.join(REPO, 'build')
+LOWRES_GIN = os.path.join(REPO, 'configs', 'lowres', 'lowres.gin')
 
 
 START = time.perf_counter()
@@ -697,7 +710,6 @@ def phase_eval(inference, model_config, splat_cuda, power):
   log('== phase 6: full-width FID eval (1024x512, gen_dims 128, ResNet-101,'
       f' bf16, T={EVAL_FRAMES}, batch {EVAL_BATCH}) ==')
   from se3ds_torch import constants
-  from se3ds_torch.eval import fid as fid_lib
   from se3ds_torch.eval import inception as inception_lib
   from se3ds_torch.eval import metrics
   cfg = model_config.SE3DSConfig(ckpt_path=None, image_height=H,
@@ -705,9 +717,8 @@ def phase_eval(inference, model_config, splat_cuda, power):
                                  compute_dtype='bfloat16')
   generator = eval_generator(inference, cfg, 'cuda', seed=0)
   t0 = time.perf_counter()
-  videos = [synthetic_video(EVAL_BATCH, EVAL_FRAMES, H, seed)
-            for seed in (1, 2)]
-  log(f'  synthetic video batches made in {time.perf_counter() - t0:.2f} s')
+  video = synthetic_video(EVAL_BATCH, EVAL_FRAMES, H, 1)
+  log(f'  synthetic video batch made in {time.perf_counter() - t0:.2f} s')
   depth_scale = constants.DEPTH_SCALE
 
   # Warm-up rollout (cuDNN picks its algorithms), which also records the
@@ -723,7 +734,7 @@ def phase_eval(inference, model_config, splat_cuda, power):
 
   geometry.project_memory_equirect = recording
   try:
-    metrics.rollout_generated(generator, videos[0], EVAL_FRAMES, depth_scale,
+    metrics.rollout_generated(generator, video, EVAL_FRAMES, depth_scale,
                               device='cuda')
   finally:
     geometry.project_memory_equirect = stage
@@ -731,7 +742,7 @@ def phase_eval(inference, model_config, splat_cuda, power):
   splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
   t0 = time.perf_counter()
   generated, rmse, aux = metrics.rollout_generated(
-      generator, videos[0], EVAL_FRAMES, depth_scale, device='cuda')
+      generator, video, EVAL_FRAMES, depth_scale, device='cuda')
   sync()
   rollout_s = time.perf_counter() - t0
   rollout_launches = splat_cuda.EXACT_LAUNCHES
@@ -755,42 +766,16 @@ def phase_eval(inference, model_config, splat_cuda, power):
       f'of batch {EVAL_BATCH}, {EVAL_BATCH * EVAL_FRAMES / rollout_s:.3f} '
       f'eval frames/sec ({power})')
 
-  # The eval entry point: real pools at construction, then the FID.
+  # Inception on a generated frame (the FID itself runs in phase 8,
+  # through Trainer.test).
   rng = torch.Generator(device='cuda').manual_seed(0)
   inception = inception_lib.init_inception(
       torch.Generator(device='cuda').manual_seed(42))
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
-  t0 = time.perf_counter()
-  metric = metrics.EvalMetric(
-      lambda: iter(videos), eval_num=EVAL_BATCH, batch_size=EVAL_BATCH,
-      avg_num=1, eval_seq_len=EVAL_FRAMES, depth_scale=depth_scale,
-      inception_model=inception, rng=rng, device='cuda')
-  fid, fid_std, eval_rmse, inception_score = metric.calculate_fid_score(
-      generator)
-  eval_s = time.perf_counter() - t0
-  eval_launches = splat_cuda.EXACT_LAUNCHES
-  # eval_num // batch_size + 1 = 2 rollouts, one exact launch per frame.
-  if eval_launches != 2 * EVAL_FRAMES or splat_cuda.LAUNCHES:
-    raise AssertionError(f'EvalMetric: {eval_launches} exact launches, '
-                         f'{splat_cuda.LAUNCHES} fast ones')
-  for name, values in (('FID', fid), ('RMSE', eval_rmse),
-                       ('IS', inception_score)):
-    if (set(values) != set(range(1, EVAL_FRAMES))
-        or not all(np.isfinite(v) for v in values.values())):
-      raise AssertionError(f'{name}: {values}')
-  log(f'  EvalMetric.calculate_fid_score: FID {fid}, RMSE {eval_rmse}, IS '
-      f'{inception_score} in {eval_s:.2f} s (2 real-pool batches, 2 '
-      'rollouts, 3 FIDs)')
-
   crop = metrics._augment_crop_for_inception(generated[1], rng)
   inception_ms = time_ms(lambda: inception_lib.get_inception(
       crop, inception), reps=10)
   log(f'  Inception: {inception_ms:.3f} ms per batch of {EVAL_BATCH} '
       f'({tuple(crop.shape[1:3])} -> 299x299) ({power})')
-  t0 = time.perf_counter()
-  fid_lib.calculate_fid(metric._pool[1], metric._pool[2])
-  log(f'  host FID (2048-d, {EVAL_BATCH} samples, scipy sqrtm): '
-      f'{time.perf_counter() - t0:.2f} s')
 
   # The stage on the rollout's own inputs, frame by frame.
   max_err, frame_times = 0.0, []
@@ -843,8 +828,7 @@ def phase_train(power):
   log('== phase 7: full-width lowres training (256x128, gen_dims 128, '
       'ResNet-101, D dis_dims 128 n_dis 2 n_layers 6, float32) ==')
   import tempfile
-  from se3ds_torch.models import discriminator as disc_lib
-  from se3ds_torch.models import generator as gen_lib
+  from se3ds_torch import config as config_lib
   from se3ds_torch.train import checkpoints as ckpt_lib
   from se3ds_torch.train import state as state_lib
   from se3ds_torch.train import trainer as trainer_lib
@@ -855,16 +839,16 @@ def phase_train(power):
   torch.cuda.reset_peak_memory_stats()
   os.makedirs(BUILD_DIR, exist_ok=True)
   model_dir = tempfile.mkdtemp(prefix='train_', dir=BUILD_DIR)
-  trainer = trainer_lib.Trainer(
-      model_dir, train_batch_size=TRAIN_CHUNK, num_batched_steps=1,
-      log_every_steps=1, save_every_steps=10 * TRAIN_STEPS,
-      generator_fn=lambda: gen_lib.ResNetGenerator(
-          spectral_fold=False, **trainer_lib.LOWRES_GENERATOR),
-      discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
-          **trainer_lib.LOWRES_DISCRIMINATOR),
-      device='cuda', **trainer_lib.LOWRES)
+  # The recipe's values and widths from its gin file; the batch and the
+  # schedule cut to one card and a few steps.
+  config_lib.clear_config()
+  config_lib.parse_config_files_and_bindings([LOWRES_GIN])
+  trainer = config_lib.apply_config(
+      'GAN', model_dir=model_dir, train_batch_size=TRAIN_CHUNK,
+      num_batched_steps=1, log_every_steps=1,
+      save_every_steps=10 * TRAIN_STEPS, device='cuda')
   batches = trainer_lib.synthetic_batches(
-      2 * TRAIN_CHUNK, trainer_lib.LOWRES['image_size'], 0)
+      2 * TRAIN_CHUNK, trainer.image_size, 0)
 
   # Watch the trainer's own cluster calls: time each (synchronised), keep
   # its metrics, and check the parameters and the EMA around them.
@@ -955,7 +939,7 @@ def phase_train(power):
   shutil.rmtree(model_dir)
 
   t0 = time.perf_counter()
-  grid = trainer.get_image_grid(state, next(batches))
+  grid, _ = trainer.get_image_grid(state, 'train')
   grid_s = time.perf_counter() - t0
   for key, image in grid.items():
     if image.dtype != np.uint8 or image.shape[0] != 1:
@@ -976,9 +960,9 @@ def tiny_trainer(device, model_dir):
       model_dir, image_size=32, seed=0, beta1=0.5, g_lr=1e-4, d_lr=4e-4,
       train_batch_size=2, d_step_per_g_step=2, num_batched_steps=2,
       predict_depth=True, mask_blurred=True,
-      generator_fn=lambda: gen_lib.ResNetGenerator(
+      generator_fn=lambda image_size: gen_lib.ResNetGenerator(
           gen_dims=2, z_dim=2, resnet_version='tiny', spectral_fold=False),
-      discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
+      discriminator_fn=lambda image_size: disc_lib.SNMultiScaleDiscriminator(
           n_dis=2, dis_dims=2, n_layers=3),
       device=device)
 
@@ -1057,6 +1041,307 @@ def phase_train_small_vs_cpu():
   shutil.rmtree(model_dir)
 
 
+# Phase 8: the lowres recipe through the CLI. Image pairs at the recipe's
+# stored height, enough distinct records for one step (2 chunks of 16);
+# the eval videos stored at the model's 128 (a cut: the resize is then
+# the identity), 8 of them, one card's share of test_batch_size 64.
+CLI_IMAGE_HEIGHT = 1024
+CLI_TRAIN_FILES, CLI_RECORDS_PER_FILE = 8, 4
+CLI_VIDEO_FILES, CLI_VIDEOS_PER_FILE = 2, 4
+CLI_VIDEO_HEIGHT = 128
+CLI_STEPS = 4
+CLI_EVAL_FRAMES = 4  # Trainer.eval_seq_len's default (lowres.gin keeps it)
+
+
+def write_fixture(task):
+  """Writes one fixture file (a worker process's task)."""
+  kind, path, kwargs = task
+  from se3ds_torch.data import synthetic
+  getattr(synthetic, f'write_{kind}_fixture')(path, **kwargs)
+  return os.path.getsize(path)
+
+
+def event_scalars(model_dir):
+  """[(step, tag, value)] of the scalar summaries in the event files."""
+  import glob
+  import struct
+  from se3ds_torch.data import example_pb
+  from se3ds_torch.data import tfrecord
+  fields = lambda b: example_pb.iter_fields(b, 0, len(b))
+  out = []
+  for path in sorted(glob.glob(os.path.join(model_dir,
+                                            'events.out.tfevents.*'))):
+    for record in tfrecord.read_records(path):
+      event = list(fields(record))
+      step = next((v for f, v in event if f == 2), 0)
+      for field, summary in event:
+        if field != 5:  # Event.summary
+          continue
+        for _, value in fields(summary):
+          value = dict(fields(value))
+          if 2 in value:  # Value.simple_value
+            out.append((step, bytes(value[1]).decode(),
+                        struct.unpack('<f', value[2])[0]))
+  return out
+
+
+def cli_decode_timings(data, power):
+  """Host ms per training example, decode then train transform, on each
+  record path the machine has, and one video's decode + eval transform;
+  the native and Python decodes must agree bit for bit."""
+  import itertools
+  from se3ds_torch import config as config_lib
+  from se3ds_torch.data import datasets
+  from se3ds_torch.data import native_loader
+  from se3ds_torch.data import tfrecord
+  from se3ds_torch.train import trainer  # noqa: F401 (registers the data)
+  config_lib.clear_config()
+  config_lib.parse_config_files_and_bindings([LOWRES_GIN])
+  image_ds = config_lib.apply_config('R2RImageDataset', image_size=128)
+  raws = list(itertools.islice(tfrecord.read_records(
+      os.path.join(data, 'train-0.tfrecord')), 4))
+  paths = {'python': lambda raw: datasets._decode_image_example(
+      raw, CLI_IMAGE_HEIGHT)}
+  native = native_loader.available()
+  if native:
+    paths['native'] = lambda raw: native_loader.decode_image_example(
+        raw, CLI_IMAGE_HEIGHT)
+    a, b = (paths[k](raws[0]) for k in ('native', 'python'))
+    for key in a:
+      if key not in ('filename', 'scan_id') and not np.array_equal(a[key],
+                                                                   b[key]):
+        raise AssertionError(f'native and Python decodes differ: {key}')
+  log(f'  record and PNG path serving the pipeline: '
+      f'{"native (se3ds_torch/csrc/dataloader.cc)" if native else "Python"}'
+      f'; native and Python decodes bit-equal: {native or "not run"}')
+  for name, parse in paths.items():
+    rng = np.random.RandomState(0)
+    t0 = time.perf_counter()
+    decoded = [parse(raw) for raw in raws]
+    t1 = time.perf_counter()
+    for features in decoded:
+      image_ds._train_transform_fn(features, rng)
+    t2 = time.perf_counter()
+    per = lambda seconds: seconds * 1e3 / len(raws)
+    log(f'  host ms per training example ({name} path, {CLI_IMAGE_HEIGHT}x'
+        f'{2 * CLI_IMAGE_HEIGHT} record, {len(raws)} examples): decode '
+        f'{per(t1 - t0):.1f}, train transform {per(t2 - t1):.1f} ({power})')
+  video_ds = datasets.R2RVideoDataset(
+      image_size=128, preprocessed_image_height=CLI_VIDEO_HEIGHT)
+  raw = next(tfrecord.read_records(os.path.join(data, 'val_seen-0.tfrecord')))
+  t0 = time.perf_counter()
+  features = video_ds._eval_transform_fn(video_ds._parse(raw),
+                                         np.random.RandomState(0))
+  video_ms = (time.perf_counter() - t0) * 1e3
+  log(f'  host ms per eval video (8 frames at {CLI_VIDEO_HEIGHT}x'
+      f'{2 * CLI_VIDEO_HEIGHT}, decode + eval transform): {video_ms:.1f}; its '
+      f'one-hot mask {features["one_hot_mask"].nbytes / 2**20:.1f} MiB')
+
+
+def phase_cli(splat_cuda, power):
+  log('== phase 8: the CLI on the lowres recipe, TRAIN then TEST ==')
+  import concurrent.futures
+  import csv
+  import multiprocessing
+  import resource
+  import tempfile
+  from se3ds_torch import main as main_lib
+  from se3ds_torch.eval import fid as fid_lib
+  from se3ds_torch.eval import metrics
+  from se3ds_torch.ops import geometry
+  from se3ds_torch.train import checkpoints as ckpt_lib
+  from se3ds_torch.train import trainer as trainer_lib
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix='cli_', dir=BUILD_DIR)
+  data, model_dir = os.path.join(root, 'data'), os.path.join(root, 'model')
+  os.makedirs(data)
+
+  tasks = [('image', os.path.join(data, f'train-{i}.tfrecord'),
+            dict(num_examples=CLI_RECORDS_PER_FILE, height=CLI_IMAGE_HEIGHT,
+                 seed=i)) for i in range(CLI_TRAIN_FILES)]
+  tasks += [('video', os.path.join(data, f'val_seen-{i}.tfrecord'),
+             dict(num_examples=CLI_VIDEOS_PER_FILE, height=CLI_VIDEO_HEIGHT,
+                  seed=100 + i)) for i in range(CLI_VIDEO_FILES)]
+  workers = min(len(tasks), os.cpu_count() or 1)
+  t0 = time.perf_counter()
+  with concurrent.futures.ProcessPoolExecutor(
+      max_workers=workers,
+      mp_context=multiprocessing.get_context('spawn')) as pool:
+    sizes = list(pool.map(write_fixture, tasks))
+  write_s = time.perf_counter() - t0
+  records = CLI_TRAIN_FILES * CLI_RECORDS_PER_FILE
+  record_mb = sum(sizes[:CLI_TRAIN_FILES]) / records / 1e6
+  log(f'  fixtures: {records} image-pair records at {CLI_IMAGE_HEIGHT}x'
+      f'{2 * CLI_IMAGE_HEIGHT} ({record_mb:.1f} MB each), '
+      f'{CLI_VIDEO_FILES * CLI_VIDEOS_PER_FILE} videos at {CLI_VIDEO_HEIGHT}x'
+      f'{2 * CLI_VIDEO_HEIGHT}, written in {write_s:.2f} s by {workers} '
+      'processes')
+  cli_decode_timings(data, power)
+
+  bindings = [
+      f"R2RImageDataset.data_dir = '{data}/'",
+      f"R2RVideoDataset.data_dir = '{data}/'",
+      f'R2RVideoDataset.preprocessed_image_height = {CLI_VIDEO_HEIGHT}',
+      'GAN.num_epochs = 1',
+      # 4 steps of 2 chunks of 16 make the epoch.
+      'R2RImageDataset.num_examples_override = '
+      f"{{'train': {CLI_STEPS * 2 * TRAIN_CHUNK}, 'val': 8}}",
+      f'GAN.train_batch_size = {TRAIN_CHUNK}', 'GAN.num_batched_steps = 1',
+      'GAN.log_every_steps = 1', f'GAN.save_every_steps = {CLI_STEPS}',
+      f'GAN.eval_every_steps = {CLI_STEPS}',
+      'GAN.test_batch_size = 8', 'GAN.eval_size = 8', 'GAN.eval_avg_num = 1']
+  argv = ['--model_dir', model_dir, '--gin_config', LOWRES_GIN]
+  for binding in bindings:
+    argv += ['--gin_bindings', binding]
+
+  # TRAIN through the real CLI, in its own process.
+  train_log = os.path.join(root, 'train.log')
+  t0 = time.perf_counter()
+  with open(train_log, 'w') as out:
+    proc = subprocess.run(
+        [sys.executable, '-m', 'se3ds_torch.main', '--mode', 'TRAIN', *argv],
+        cwd=REPO, stdout=out, stderr=subprocess.STDOUT, timeout=900,
+        check=False)
+  train_s = time.perf_counter() - t0
+  if proc.returncode:
+    with open(train_log) as f:
+      log(''.join(f.readlines()[-40:]))
+    raise AssertionError(f'python -m se3ds_torch.main --mode TRAIN exited '
+                         f'{proc.returncode}')
+  train_rss = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss / 2**20
+  scalars = event_scalars(model_dir)
+  bad = [(step, tag) for step, tag, v in scalars if not np.isfinite(v)]
+  rates = [(step, v) for step, tag, v in scalars if tag == 'steps_per_sec']
+  if bad or len(rates) != CLI_STEPS:
+    raise AssertionError(f'TRAIN logged {len(rates)} steps, non-finite {bad}')
+  log(f'  TRAIN (python -m se3ds_torch.main, G gen_dims 128 ResNet-101, D '
+      f'dis_dims 128, {2 * TRAIN_CHUNK} examples a step, TF32 convs): '
+      f'{train_s:.2f} s wall; steps/sec as logged: '
+      + ', '.join(f'step {s} {v:.4f} ({1e3 / v:.1f} ms)' for s, v in rates)
+      + f'; peak host RSS of a child process {train_rss:.2f} GiB ({power})')
+  steps = ckpt_lib.CheckpointManager(model_dir).all_steps()
+  if steps != [CLI_STEPS] or not ckpt_lib.is_training_done(model_dir):
+    raise AssertionError(f'checkpoints {steps}, TRAIN_DONE missing?')
+
+  # TEST in this process, its parts timed and the splat stage recorded.
+  seen = {'restore': [], 'grid': [], 'pngs': [], 'fid_score': [],
+          'host_fid': [], 'moved': None, 'stage': []}
+  saved = [(ckpt_lib.CheckpointManager, 'restore'),
+           (trainer_lib.Trainer, 'get_image_grid'),
+           (trainer_lib.Trainer, 'save_eval_images'),
+           (metrics.EvalMetric, 'calculate_fid_score'),
+           (fid_lib, 'calculate_fid'), (geometry, 'project_memory_equirect')]
+  saved = [(owner, name, getattr(owner, name)) for owner, name in saved]
+  real = {name: fn for _, name, fn in saved}
+
+  def timed(key, fn):
+    def call(*args, **kwargs):
+      sync()
+      t = time.perf_counter()
+      out = fn(*args, **kwargs)
+      sync()
+      seen[key].append(time.perf_counter() - t)
+      return out
+    return call
+
+  def restore(manager, state, step=None):
+    before = [p.detach().clone() for p in (*state.generator.parameters(),
+                                           *state.discriminator.parameters())]
+    out = timed('restore', real['restore'])(manager, state, step)
+    after = (*state.generator.parameters(), *state.discriminator.parameters())
+    seen['moved'] = (sum(not torch.equal(a, b) for a, b in zip(after, before)),
+                     len(before))
+    return out
+
+  def stage(*args, **kwargs):
+    if len(seen['stage']) < CLI_EVAL_FRAMES and seen['grid_open']:
+      seen['stage'].append((
+          [a.clone() if torch.is_tensor(a) else a for a in args], kwargs))
+    return real['project_memory_equirect'](*args, **kwargs)
+
+  def grid(*args, **kwargs):
+    seen['grid_open'] = True
+    try:
+      return timed('grid', real['get_image_grid'])(*args, **kwargs)
+    finally:
+      seen['grid_open'] = False
+
+  seen['grid_open'] = False
+  wrappers = {'restore': restore, 'get_image_grid': grid,
+              'save_eval_images': timed('pngs', real['save_eval_images']),
+              'calculate_fid_score': timed('fid_score',
+                                           real['calculate_fid_score']),
+              'calculate_fid': timed('host_fid', real['calculate_fid']),
+              'project_memory_equirect': stage}
+  torch.backends.cudnn.allow_tf32 = True
+  torch.cuda.empty_cache()
+  for owner, name, _ in saved:
+    setattr(owner, name, wrappers[name])
+  try:
+    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    main_lib.main(['--mode', 'TEST', '--device', 'cuda', *argv])
+    sync()
+    test_s = time.perf_counter() - t0
+    launches, fast = splat_cuda.EXACT_LAUNCHES, splat_cuda.LAUNCHES
+  finally:
+    for owner, name, fn in saved:
+      setattr(owner, name, fn)
+    torch.backends.cudnn.allow_tf32 = False
+  rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+  # The display grid's 2 rollouts, then 2 per calculate_fid_score
+  # (eval_size // test_batch_size + 1 batches), one launch per frame.
+  want = (2 + 2 * 2) * CLI_EVAL_FRAMES
+  if launches != want or fast:
+    raise AssertionError(f'TEST: {launches} exact launches (expected {want}),'
+                         f' {fast} fast ones')
+  log(f'  TEST ({main_lib.__name__}.main in this process, TF32 convs): '
+      f'{test_s:.2f} s wall; restore {sum(seen["restore"]):.2f} s, image '
+      f'grid {sum(seen["grid"]):.2f} s, PNG dumps {sum(seen["pngs"]):.2f} s, '
+      f'calculate_fid_score {", ".join(f"{t:.2f}" for t in seen["fid_score"])}'
+      f' s (of which {len(seen["host_fid"])} host FIDs '
+      f'{sum(seen["host_fid"]):.2f} s); exact-splat launches {launches}; peak '
+      f'host RSS of this process {rss:.2f} GiB ({power})')
+  moved, total = seen['moved']
+  if moved < 0.9 * total:
+    raise AssertionError(f'only {moved} of {total} parameter tensors moved')
+  log(f'  the restored step-{CLI_STEPS} state: {moved} of {total} G and D '
+      'parameter tensors differ from the seed-0 initialisation')
+
+  with open(os.path.join(model_dir, 'scores_val_seen.csv')) as f:
+    rows = list(csv.DictReader(f))
+  keys = [f'val_seen/eval_image/{m}@{i}' for i in range(1, CLI_EVAL_FRAMES)
+          for m in ('fid', 'ema_fid', 'rmse', 'ema_rmse', 'inception_score',
+                    'ema_inception_score')]
+  if (len(rows) != 1 or rows[0]['step'] != str(CLI_STEPS)
+      or not all(np.isfinite(float(rows[0].get(k, 'nan'))) for k in keys)):
+    raise AssertionError(f'scores_val_seen.csv: {rows}')
+  log('  scores_val_seen.csv: ' + ', '.join(
+      f'{k.split("/")[-1]} {rows[0][k]}' for k in keys))
+  image_dir = os.path.join(model_dir, 'images', 'val_seen', str(CLI_STEPS))
+  missing = [f'{frame}/{example}_{kind}.png'
+             for frame in range(CLI_EVAL_FRAMES) for example in range(8)
+             for kind in ('rgb', 'depth')
+             if not os.path.exists(os.path.join(image_dir, str(frame),
+                                                f'{example}_{kind}.png'))]
+  if missing:
+    raise AssertionError(f'PNG dumps missing: {missing}')
+  log(f'  PNG dumps: {CLI_EVAL_FRAMES} frames x 8 examples x (rgb, depth) '
+      f'under images/val_seen/{CLI_STEPS}/')
+
+  # One rollout frame of the display batch: the stage's guidance on the
+  # card against its plain version, on the rollout's own inputs.
+  args, kwargs = seen['stage'][2]
+  max_err = equal_or_raise(
+      'display-batch rollout frame 2',
+      geometry.project_memory_equirect(*args, **kwargs),
+      geometry.project_memory_equirect_plain(*args, **kwargs))
+  log(f'  display-batch rollout frame 2 ({args[1].shape[0]}x'
+      f'{args[1].shape[-1]} points): exact splat == plain version')
+  shutil.rmtree(root)
+  return launches, max_err
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -1087,16 +1372,26 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
 
-  max_err = phase_kernel_parity(splat_cuda, geometry, power)
-  phase_small_vs_cpu(inference, model_config)
-  launches, main_err, fast = phase_serving(inference, model_config,
-                                           splat_cuda, power)
-  exact_err = phase_exact_parity(splat_cuda, geometry, power)
-  exact_launches, rollout_err, exact = phase_eval(
-      inference, model_config, splat_cuda, power)
-  phase_eval_small_vs_cpu(inference, model_config)
-  phase_train(power)
-  phase_train_small_vs_cpu()
+  seconds = {'1': time.perf_counter() - START}
+
+  def run(name, fn, *args):
+    t = time.perf_counter()
+    out = fn(*args)
+    seconds[name] = time.perf_counter() - t
+    log(f'  (phase {name}: {seconds[name]:.1f} s)')
+    return out
+
+  max_err = run('2', phase_kernel_parity, splat_cuda, geometry, power)
+  run('3', phase_small_vs_cpu, inference, model_config)
+  launches, main_err, fast = run('4', phase_serving, inference,
+                                 model_config, splat_cuda, power)
+  exact_err = run('5', phase_exact_parity, splat_cuda, geometry, power)
+  exact_launches, rollout_err, exact = run(
+      '6', phase_eval, inference, model_config, splat_cuda, power)
+  run('6b', phase_eval_small_vs_cpu, inference, model_config)
+  run('7', phase_train, power)
+  run('7b', phase_train_small_vs_cpu)
+  cli_launches, cli_err = run('8', phase_cli, splat_cuda, power)
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']
@@ -1108,7 +1403,10 @@ def main():
       f'launch {exact["point"]:.4f} ms + resolve {exact["resolve"]:.4f} ms,'
       f' whole stage {exact["stage"]:.4f} ms, plain {exact["plain"]:.4f} ms,'
       f' bound {exact["bound"]:.4f} ms')
-  log(f'chip_smoke took {time.perf_counter() - START:.1f} s')
+  log(f'splat_exact launches: {exact_launches} in phase 6\'s rollout, '
+      f'{cli_launches} in phase 8\'s TEST (the kernels line counts phase 8)')
+  log(f'chip_smoke took {time.perf_counter() - START:.1f} s; by phase: '
+      + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()))
   log(power)
 
   log(json.dumps({'kernels': [{
@@ -1119,8 +1417,9 @@ def main():
       'bound_by': 'bytes', 'library_ms': None}, {
           'name': 'splat_exact', 'route': 'cuda',
           'source': 'se3ds_torch/csrc/splat_exact.cu',
-          'replaces': EXACT_REPLACES, 'launches': exact_launches,
-          'max_abs_err': max(exact_err, rollout_err), 'ms': exact_ms,
+          'replaces': EXACT_REPLACES, 'launches': cli_launches,
+          'max_abs_err': max(exact_err, rollout_err, cli_err),
+          'ms': exact_ms,
           'plain_ms': exact['plain'], 'bound_ms': exact['bound'],
           'bound_by': 'bytes', 'library_ms': None}]}))
   log(json.dumps({'ok': True, 'device': {

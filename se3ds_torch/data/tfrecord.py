@@ -1,16 +1,22 @@
-"""TFRecord framing without TensorFlow (the writer and reader of
-`se3ds_tpu.data.tfrecord`, copied): TensorBoard event files are
-TFRecord-framed.
+"""TFRecord container I/O without TensorFlow (a copy of
+`se3ds_tpu.data.tfrecord`): the data pipeline's records and TensorBoard
+event files are TFRecord-framed.
 
 Per record: uint64 length (LE) | uint32 masked-crc32c(length) | data |
 uint32 masked-crc32c(data).
+
+The checksums are computed by the native loader (`data/native_loader.py`)
+where it builds, else in Python at ~0.2 s per MiB; the reader checks them
+only when asked (`verify_crc=True`), as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import glob
 import struct
-from typing import Iterator
+from typing import Iterator, List
 
+from se3ds_torch.data import native_loader
 
 
 def _build_table():
@@ -36,7 +42,8 @@ def crc32c(data: bytes, crc: int = 0) -> int:
 
 
 def masked_crc32c(data: bytes) -> int:
-  crc = crc32c(data)
+  crc = (native_loader.crc32c(data) if native_loader.available()
+         else crc32c(data))
   return ((((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF)
 
 
@@ -59,23 +66,43 @@ class TFRecordWriter:
   def close(self) -> None:
     self._f.close()
 
+  def __enter__(self):
+    return self
 
-def read_records(path: str) -> Iterator[bytes]:
-  """Yields the raw record payloads of a TFRecord file, checking both
-  checksums of each."""
+  def __exit__(self, *exc):
+    self.close()
+
+
+def read_records(path: str, verify_crc: bool = False) -> Iterator[bytes]:
+  """Yields the raw record payloads of a TFRecord file; with `verify_crc`
+  checks both checksums of each and raises IOError on a mismatch."""
   with open(path, 'rb') as f:
     while True:
       header = f.read(12)
       if len(header) < 12:
         return
       (length,) = struct.unpack('<Q', header[:8])
-      (crc,) = struct.unpack('<I', header[8:12])
-      if masked_crc32c(header[:8]) != crc:
-        raise IOError(f'corrupted record length crc in {path}')
+      if verify_crc:
+        (crc,) = struct.unpack('<I', header[8:12])
+        if masked_crc32c(header[:8]) != crc:
+          raise IOError(f'corrupted record length crc in {path}')
       data = f.read(length)
       footer = f.read(4)
       if len(data) < length or len(footer) < 4:
         raise IOError(f'truncated record in {path}')
-      if masked_crc32c(data) != struct.unpack('<I', footer)[0]:
+      if verify_crc and masked_crc32c(data) != struct.unpack('<I', footer)[0]:
         raise IOError(f'corrupted record data crc in {path}')
       yield data
+
+
+def list_files(file_pattern) -> List[str]:
+  """Expands glob pattern(s) into a sorted file list; raises
+  FileNotFoundError when nothing matches."""
+  patterns = (list(file_pattern) if isinstance(file_pattern, (list, tuple))
+              else [file_pattern])
+  files: List[str] = []
+  for pattern in patterns:
+    files.extend(glob.glob(pattern))
+  if not files:
+    raise FileNotFoundError(f'No data files matched {file_pattern}')
+  return sorted(files)

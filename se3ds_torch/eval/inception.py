@@ -9,16 +9,18 @@ Flax ones, so `torch_state_dict_from_flax_inception` maps the JAX
 package's variables one to one.
 
 Weights: `init_inception(generator)` gives deterministic random weights
-(FID and IS are then a consistent relative metric only). The JAX
-package's Keras `.h5` loader is not ported (ROADMAP.md item A12); convert
-its variables with `torch_state_dict_from_flax_inception`.
+(FID and IS are then a consistent relative metric only);
+`inception_model`, the gin configurable the trainer's eval builds, gives
+them from a fixed seed or loads a saved state dict. The JAX package's
+Keras `.h5` loader is not ported (ROADMAP.md item A12); convert its
+variables with `torch_state_dict_from_flax_inception`.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -219,6 +221,33 @@ def init_inception(generator: torch.Generator) -> InceptionV3:
   head = model.predictions
   head.weight.normal_(0.0, 1.0 / math.sqrt(POOL_DIM), generator=generator)
   head.bias.zero_()
+  return model.eval().requires_grad_(False)
+
+
+def inception_model(version: str = 'V3',
+                    checkpoint_path: Optional[str] = None) -> InceptionV3:
+  """InceptionV3 on the CPU, in eval mode (the JAX package's
+  `inception_model`, its gin surface).
+
+  checkpoint_path: None gives `init_inception` from seed 42 (a CPU
+  generator, so every device evaluates with the same weights); a file
+  written by `torch.save(model.state_dict())` loads. A Keras `.h5` raises
+  NotImplementedError: its loader needs h5py (ROADMAP.md item A12).
+  """
+  if version != 'V3':
+    raise ValueError(f'{version} is not valid input.')
+  if checkpoint_path is None:
+    return init_inception(torch.Generator().manual_seed(42))
+  if checkpoint_path.endswith('.h5'):
+    raise NotImplementedError(
+        'Loading Keras .h5 InceptionV3 weights needs h5py, which the port '
+        'does not use; convert the JAX package\'s variables with '
+        'torch_state_dict_from_flax_inception and torch.save them.')
+  with torch.device('meta'):
+    model = InceptionV3()
+  model.to_empty(device='cpu')
+  model.load_state_dict(torch.load(checkpoint_path, map_location='cpu',
+                                   weights_only=True))
   return model.eval().requires_grad_(False)
 
 

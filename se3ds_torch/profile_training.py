@@ -2,10 +2,10 @@
 
     python -m se3ds_torch.profile_training [--chunk 16] [--steps 2] [--top 15]
 
-Builds the lowres recipe's trainer at full width (256x128 panoramas,
-G gen_dims=128 ResNet-101, D dis_dims=128 n_dis=2 n_layers=6, float32
-with TF32 convolutions, random weights from seed 0, `--chunk` examples
-per chunk), warms up with two `train_step`s on one synthetic batch, then
+Builds the lowres recipe's trainer at full width from
+configs/lowres/lowres.gin (256x128 panoramas, G gen_dims=128 ResNet-101,
+D dis_dims=128 n_dis=2 n_layers=6, float32 with TF32 convolutions,
+random weights from seed 0, `--chunk` examples per chunk), warms up with two `train_step`s on one synthetic batch, then
 profiles `--steps` more. Prints the host wall and the device's busy time
 and idle share; for each part of the step (the D-only step, each D
 update, each backward, each clip, each Adam step, the EMA) its
@@ -17,6 +17,7 @@ name and power limit. Needs a CUDA card.
 
 import argparse
 import contextlib
+import os
 import subprocess
 import tempfile
 import time
@@ -24,11 +25,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from se3ds_torch.models import discriminator as disc_lib
-from se3ds_torch.models import generator as gen_lib
+from se3ds_torch import config as config_lib
 from se3ds_torch.train import losses as losses_lib
 from se3ds_torch.train import state as state_lib
 from se3ds_torch.train import trainer as trainer_lib
+
+LOWRES_GIN = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), 'configs', 'lowres', 'lowres.gin')
 
 # (module, function name, range name): the parts of a step.
 PARTS = ((state_lib, 'train_d_step', 'D-only step'),
@@ -72,17 +75,14 @@ def main():
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   torch.backends.cudnn.allow_tf32 = True
+  config_lib.parse_config_files_and_bindings([LOWRES_GIN])
   with tempfile.TemporaryDirectory() as model_dir:
-    trainer = trainer_lib.Trainer(
-        model_dir, train_batch_size=args.chunk,
-        generator_fn=lambda: gen_lib.ResNetGenerator(
-            spectral_fold=False, **trainer_lib.LOWRES_GENERATOR),
-        discriminator_fn=lambda: disc_lib.SNMultiScaleDiscriminator(
-            **trainer_lib.LOWRES_DISCRIMINATOR),
-        device='cuda', **trainer_lib.LOWRES)
+    trainer = config_lib.apply_config(
+        'GAN', model_dir=model_dir, train_batch_size=args.chunk,
+        device='cuda')
   state = trainer.create_state()
   batch = trainer.device_batch(next(trainer_lib.synthetic_batches(
-      2 * args.chunk, trainer_lib.LOWRES['image_size'], 0)))
+      trainer.d_step_per_g_step * args.chunk, trainer.image_size, 0)))
   step = lambda: state_lib.train_step(state, batch, trainer.hp)
   for _ in range(2):
     step()

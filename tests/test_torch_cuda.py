@@ -286,10 +286,11 @@ def _tiny_trainer(model_dir, device=None):
       str(model_dir), image_size=32, seed=0, beta1=0.5, g_lr=1e-4, d_lr=4e-4,
       train_batch_size=2, d_step_per_g_step=2, num_batched_steps=2,
       predict_depth=True, mask_blurred=True,
-      generator_fn=lambda: generator_lib.ResNetGenerator(
+      generator_fn=lambda image_size: generator_lib.ResNetGenerator(
           gen_dims=2, z_dim=2, resnet_version='tiny', spectral_fold=False),
-      discriminator_fn=lambda: discriminator_lib.SNMultiScaleDiscriminator(
-          n_dis=2, dis_dims=2, n_layers=3),
+      discriminator_fn=lambda image_size: (
+          discriminator_lib.SNMultiScaleDiscriminator(n_dis=2, dis_dims=2,
+                                                      n_layers=3)),
       device=device)
 
 
@@ -349,3 +350,38 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
                                    checkpoints.state_bundle(restored))
   step_devices = {s['step'].device.type for s in restored.g_opt.state.values()}
   assert step_devices == {'cpu'}
+
+
+@pytest.mark.cuda
+def test_cli_train_then_test_on_the_card(card, tmp_path):
+  """`python -m se3ds_torch.main` TRAIN then TEST with configs/tiny_test.gin
+  on fixture records, on the card by default (no --device): the eval's
+  rollouts launch the exact CUDA splat, and every score in
+  scores_val_seen.csv is finite."""
+  import csv
+  import os
+  from se3ds_torch import main as main_lib
+  from se3ds_torch.data import synthetic
+  repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+  data = tmp_path / 'data'
+  data.mkdir()
+  synthetic.write_image_fixture(str(data / 'train-0.tfrecord'),
+                                num_examples=8, height=64)
+  synthetic.write_video_fixture(str(data / 'val_seen-0.tfrecord'),
+                                num_examples=2, height=64)
+  argv = ['--model_dir', str(tmp_path / 'model'), '--gin_config',
+          os.path.join(repo, 'configs', 'tiny_test.gin')]
+  for binding in (f"R2RImageDataset.data_dir = '{data}/'",
+                  f"R2RVideoDataset.data_dir = '{data}/'",
+                  'GAN.num_epochs = 1',
+                  "R2RImageDataset.num_examples_override = {'train': 8}"):
+    argv += ['--gin_bindings', binding]
+  assert main_lib.main(argv + ['--mode', 'TRAIN']) == 0
+  before = splat_cuda.EXACT_LAUNCHES
+  assert main_lib.main(argv + ['--mode', 'TEST']) == 0
+  assert splat_cuda.EXACT_LAUNCHES > before
+  with open(tmp_path / 'model' / 'scores_val_seen.csv') as f:
+    (row,) = list(csv.DictReader(f))
+  scores = {k: float(v) for k, v in row.items() if '/eval_image/' in k}
+  assert len(scores) == 6
+  assert all(np.isfinite(v) for v in scores.values()), scores

@@ -47,7 +47,10 @@ def test_port_files_found():
           'se3ds_torch/utils/image_grid.py',
           'se3ds_torch/utils/parameter_overview.py',
           'se3ds_torch/data/png.py', 'se3ds_torch/data/tfrecord.py',
-          'se3ds_torch/data/example_pb.py', 'chip_smoke.py'} <= names
+          'se3ds_torch/data/example_pb.py', 'se3ds_torch/data/tensorproto.py',
+          'se3ds_torch/data/native_loader.py', 'se3ds_torch/data/datasets.py',
+          'se3ds_torch/data/synthetic.py', 'se3ds_torch/config.py',
+          'se3ds_torch/main.py', 'chip_smoke.py'} <= names
 
 
 def test_kernel_build_flags():

@@ -253,9 +253,10 @@ def _tiny_trainer(model_dir, **kwargs):
   return trainer_t.Trainer(
       str(model_dir), image_size=SIZE, seed=0, train_batch_size=2,
       predict_depth=True, mask_blurred=True,
-      generator_fn=lambda: gen_t.ResNetGenerator(spectral_fold=False,
-                                                 **G_CONFIG),
-      discriminator_fn=lambda: disc_t.SNMultiScaleDiscriminator(**D_CONFIG),
+      generator_fn=lambda image_size: gen_t.ResNetGenerator(
+          spectral_fold=False, **G_CONFIG),
+      discriminator_fn=lambda image_size: disc_t.SNMultiScaleDiscriminator(
+          **D_CONFIG),
       device='cpu', **{**OPT, **HP, **kwargs})
 
 
@@ -308,7 +309,7 @@ def test_trainer_train_equals_train_step_by_hand(tmp_path):
   assert ckpt_t.CheckpointManager(run).all_steps() == [2]
   assert ckpt_t.is_training_done(run)
   (events,) = glob.glob(os.path.join(run, 'events.out.tfevents.*'))
-  records = list(tfrecord.read_records(events))
+  records = list(tfrecord.read_records(events, verify_crc=True))
   # The version record, 2 x 13 scalars, 9 grid images.
   assert len(records) == 1 + 2 * 13 + 9
   # A second train() restores step 2 and has nothing left to do.
@@ -362,7 +363,8 @@ def test_image_grid_and_event_encoding_match_jax(tmp_path):
   log.log_images(3, g=got['train_x'])
   log.close()
   (events,) = glob.glob(str(tmp_path / 'events.out.tfevents.*'))
-  assert len(list(tfrecord.read_records(events))) == 1 + 2 + 1
+  assert len(list(tfrecord.read_records(events, verify_crc=True))) == (
+      1 + 2 + 1)
 
 
 def test_trainer_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
