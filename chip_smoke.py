@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port of SE3DS (serving, FID eval and GAN
-training) on one NVIDIA card.
+"""Drives the PyTorch/CUDA port of SE3DS (serving and its API, FID eval
+and GAN training) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -66,6 +66,23 @@ Phases, in order; any failure raises and the process exits non-zero:
      calls) with exactly 24 exact-splat launches; finite scores at @1..@3
      in scores_val_seen.csv, every PNG there, the parameters moved, and one
      display-batch rollout frame's guidance equal to the plain version.
+  9. The serving API at full width, on phase 4's config; every splat
+     stage on these paths is held against its plain version (torch.equal)
+     as it runs: (a) ring memory (memory_frames 8): add_to_memory, 11
+     feedback steps (the write wraps at the 8th) and a predict_trajectory
+     of 3, ms per step before and after the wrap, the memory buffers
+     never reallocated; (b) predict_poses at K = 8 on a stride-0 memory
+     against 8 single calls (guidance equal, outputs within a bf16 band),
+     ms per pose and per call, peak device memory; (c)
+     sample_perturbed_views, 16 views in chunks of 8, ms per view; (d)
+     the RE10K config: a 512x512 perspective source warped on the card
+     (against the CPU), add_to_memory(mask_blurred=False), 3 steps and a
+     perspective view; (e) write_memory_as_pointcloud after one frame,
+     seconds and bytes; (f) SE3DSModel(ckpt_path=...) on phase 8's
+     step-4 checkpoint (image 128, gen_dims 128, ResNet-101), the restore
+     seconds, its weights and outputs torch.equal to a model built from
+     folding.serving_state_dict of the same bundle. Phase 8's directory
+     is deleted after phase 9.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -460,12 +477,18 @@ def phase_small_vs_cpu(inference, model_config):
       raise AssertionError('card and CPU splat stages disagree')
 
 
+def serving_config(model_config, **overrides):
+  """Phase 4's production serving config (full width, bf16, 'fast')."""
+  return dataclasses.replace(model_config.SE3DSConfig(
+      ckpt_path=None, image_height=H, gen_dims=128, resnet_version='101',
+      compute_dtype='bfloat16', memory_frames=8, splat_mode='fast'),
+                             **overrides)
+
+
 def phase_serving(inference, model_config, splat_cuda, power):
   log('== phase 4: full-width serving (1024x512, gen_dims 128, ResNet-101,'
       ' bf16) ==')
-  cfg = model_config.SE3DSConfig(
-      ckpt_path=None, image_height=H, gen_dims=128, resnet_version='101',
-      compute_dtype='bfloat16', memory_frames=8, splat_mode='fast')
+  cfg = serving_config(model_config)
   t0 = time.perf_counter()
   model = inference.SE3DSModel(
       cfg, device='cuda',
@@ -1338,8 +1361,382 @@ def phase_cli(splat_cuda, power):
       geometry.project_memory_equirect_plain(*args, **kwargs))
   log(f'  display-batch rollout frame 2 ({args[1].shape[0]}x'
       f'{args[1].shape[-1]} points): exact splat == plain version')
-  shutil.rmtree(root)
-  return launches, max_err
+  # The caller deletes `root` after phase 9 has served its checkpoint.
+  return launches, max_err, model_dir, root
+
+
+class CheckedStage:
+  """While active, every call of `geometry.project_memory_equirect` (the
+  splat stage of the main path) is held against its plain version on the
+  same inputs, torch.equal, at once (the memory is written in place by
+  the next step). The comparisons' seconds are kept apart so that the
+  caller can take them off its step times; they launch no kernel."""
+
+  def __init__(self, geometry):
+    self.geometry = geometry
+    self.stage = geometry.project_memory_equirect
+    self.calls, self.max_err, self.check_s = 0, 0.0, 0.0
+    self.strides = []
+
+  def __enter__(self):
+    def checked(feats, xyz1, offset, *args, **kwargs):
+      out = self.stage(feats, xyz1, offset, *args, **kwargs)
+      sync()
+      t0 = time.perf_counter()
+      plain_kwargs = {k: v for k, v in kwargs.items() if k != 'need_depth'}
+      want = self.geometry.project_memory_equirect_plain(
+          feats, xyz1, offset, *args, **plain_kwargs)
+      self.max_err = max(self.max_err, equal_or_raise(
+          f'splat stage call {self.calls}', out, want))
+      self.strides.append((feats.stride(0), xyz1.stride(0), xyz1.shape[0]))
+      self.calls += 1
+      self.check_s += time.perf_counter() - t0
+      return out
+
+    self.geometry.project_memory_equirect = checked
+    return self
+
+  def __exit__(self, *exc):
+    self.geometry.project_memory_equirect = self.stage
+
+
+def timed_call(check, fn):
+  """(result, ms of fn without the plain-version checks) after a sync."""
+  sync()
+  before = check.check_s
+  t0 = time.perf_counter()
+  out = fn()
+  sync()
+  return out, ((time.perf_counter() - t0) - (check.check_s - before)) * 1e3
+
+
+def smooth_image(height, width, seed):
+  """A smooth (H, W, 3) float32 image in [0, 255] and a (H, W, 1) depth
+  in [0.1, 0.5]: what an RE10K frame and its depth look like to a warp."""
+  rs = np.random.RandomState(seed)
+  rows = np.linspace(0, np.pi, height, dtype=np.float32)[:, None, None]
+  cols = np.linspace(0, np.pi, width, dtype=np.float32)[None, :, None]
+  phase = rs.uniform(0, 2 * np.pi, (1, 1, 3)).astype(np.float32)
+  rgb = 127.5 + 120 * np.sin(3 * cols + 2 * rows + phase)
+  depth = 0.3 + 0.2 * np.sin(2 * cols) * np.cos(rows)
+  return rgb.astype(np.float32), depth[..., :1].astype(np.float32)
+
+
+# Batch 8 and batch 1 run different cuDNN algorithms in bf16, so the
+# generator's outputs at predict_poses' batch K = 8 and at 8 single calls
+# differ within a band: pred_rgb by at most POSES_RGB_LEVELS of 255 on at
+# most POSES_RGB_SHARE of values, pred_depth by at most POSES_DEPTH_ATOL.
+POSES_RGB_LEVELS, POSES_RGB_SHARE, POSES_DEPTH_ATOL = 8, 0.25, 0.05
+# The perspective warp of a smooth 512x512 source on the card against the
+# CPU: their trig rounds an ULP apart, which moves a bilinear sample by
+# up to its gradient times the ULP of its coordinate (~6e-5 at 512).
+WARP_ATOL = 0.05
+RING_STEPS, RING_TRAJECTORY = 11, 3
+POSES_K, PERTURBED_VIEWS = 8, 16
+
+
+def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
+  """(a) Ring memory across a wrap; returns (model, launches, max_err)."""
+  frames = 8
+  model = inference.SE3DSModel(
+      serving_config(model_config, memory_mode='ring'), device='cuda',
+      generator=torch.Generator(device='cuda').manual_seed(0))
+  rgb, sem, depth = pano
+  mem = model.get_memory_state(copy=False)
+  buffers = lambda m: [(t.data_ptr(), t.nbytes) for t in m[:4]]
+  layout = buffers(mem)
+  slots, step_ms = [], []
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  with CheckedStage(geometry) as check:
+    _, add_ms = timed_call(check, lambda: model.add_to_memory(
+        rgb, sem, depth, np.zeros((1, 3), np.float32)))
+    allocated = {}
+    for i in range(RING_STEPS):
+      slots.append(model._next_write_slot())
+      if slots[-1] == 0:
+        allocated['before the wrap'] = torch.cuda.memory_allocated()
+      _, ms = timed_call(check, lambda: model(
+          np.array([[0.2 * (i + 1), 0.05 * i, 0.0]], np.float32),
+          add_preds_to_memory=True))
+      step_ms.append(ms)
+    allocated['after the wrap'] = torch.cuda.memory_allocated()
+    traj, traj_ms = timed_call(check, lambda: model.predict_trajectory(
+        np.array([[2.5, 0.1 * t, 0.0] for t in range(RING_TRAJECTORY)],
+                 np.float32)))
+  launches = splat_cuda.LAUNCHES
+  served = RING_STEPS + RING_TRAJECTORY
+  if launches != 2 * served or splat_cuda.EXACT_LAUNCHES:
+    raise AssertionError(f'ring: {launches} fast point passes for {served} '
+                         f'frames (expected 2 each)')
+  if check.calls != 2 * served or buffers(model.get_memory_state(
+      copy=False)) != layout:
+    raise AssertionError(f'ring: {check.calls} checked stages, or the memory '
+                         'buffers were reallocated')
+  if (model._frames_written, model._total_frames) != (
+      frames, 1 + served) or not torch.isfinite(traj.pred_depth).all():
+    raise AssertionError('ring: frame counters or outputs wrong')
+  # Step 1 (cuDNN's set-up) is left out; step `frames` writes slot 0.
+  before, after = step_ms[1:frames - 1], step_ms[frames - 1:]
+  log(f'  (a) ring memory, {frames} frames: add {add_ms:.2f} ms, '
+      f'{RING_STEPS} feedback steps writing slots {slots}; ms per step '
+      f'before the wrap (steps 2-{frames - 1}) {statistics.mean(before):.2f}'
+      f', from the wrap on (steps {frames}-{RING_STEPS}) '
+      f'{statistics.mean(after):.2f}; all steps '
+      f'{[round(m, 2) for m in step_ms]}; predict_trajectory '
+      f'T={RING_TRAJECTORY} {traj_ms:.2f} ms ({power})')
+  log(f'  (a) every one of {check.calls} splat stages torch.equal to '
+      'project_memory_equirect_plain on the card; memory buffers '
+      f'{sum(n for _, n in layout) / 2**20:.1f} MiB, the same allocations '
+      'before and after the wrap; device memory allocated '
+      + ', '.join(f'{k} {v / 2**20:.1f} MiB' for k, v in allocated.items())
+      + f' ({power})')
+  return model, launches, check.max_err
+
+
+def phase_poses(model, splat_cuda, geometry, power):
+  """(b) predict_poses at K = 8 against 8 single calls."""
+  rs = np.random.RandomState(5)
+  poses = rs.uniform(-0.8, 0.8, (POSES_K, 3)).astype(np.float32)
+  poses[:, 2] *= 0.1
+  before = [t.clone() for t in model.get_memory_state(copy=False)[:4]]
+  model.predict_poses(poses)  # warm-up: cuDNN picks its batch-8 algorithms
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  with CheckedStage(geometry) as check:
+    out, poses_ms = timed_call(check, lambda: model.predict_poses(poses))
+  launches = splat_cuda.LAUNCHES
+  peak = torch.cuda.max_memory_allocated()
+  if launches != 2 or check.strides != [(0, 0, POSES_K)] * 2:
+    raise AssertionError(f'predict_poses: {launches} launches, strides '
+                         f'{check.strides} (expected 2 at batch stride 0)')
+  model(poses[:1])  # warm-up at batch 1
+  singles, single_ms = [], []
+  for p in poses:
+    one, ms = timed_call(check, lambda: model(p[None]))
+    singles.append(one)
+    single_ms.append(ms)
+  for key in ('proj_rgb', 'proj_semantic', 'proj_depth', 'proj_mask'):
+    if not torch.equal(getattr(out, key),
+                       torch.cat([getattr(s, key) for s in singles])):
+      raise AssertionError(f'predict_poses {key} != single calls')
+  rgb_err = (out.pred_rgb.int() - torch.cat(
+      [s.pred_rgb for s in singles]).int()).abs()
+  depth_err = float((out.pred_depth - torch.cat(
+      [s.pred_depth for s in singles])).abs().max())
+  share = float((rgb_err > 0).float().mean())
+  log(f'  (b) predict_poses K={POSES_K}: guidance torch.equal to {POSES_K} '
+      f'single calls and to the plain splat (memory read at batch stride 0);'
+      f' pred_rgb off by up to {int(rgb_err.max())} levels on {share:.4f} of '
+      f'values, pred_depth by up to {depth_err:.4g} (band: '
+      f'{POSES_RGB_LEVELS} levels on {POSES_RGB_SHARE}, {POSES_DEPTH_ATOL})')
+  if (rgb_err.max() > POSES_RGB_LEVELS or share > POSES_RGB_SHARE
+      or depth_err > POSES_DEPTH_ATOL):
+    raise AssertionError('predict_poses outside the bf16 band')
+  if not all(torch.equal(a, b) for a, b in zip(
+      before, model.get_memory_state(copy=False)[:4])):
+    raise AssertionError('predict_poses modified the memory')
+  log(f'  (b) {poses_ms / POSES_K:.2f} ms per pose at K={POSES_K} '
+      f'({poses_ms:.2f} ms the call) against '
+      f'{statistics.median(single_ms):.2f} ms per __call__ (median of '
+      f'{POSES_K}); peak device memory {peak / 2**30:.2f} GiB '
+      f'({(peak - base) / 2**30:.2f} GiB above the model and its memory) '
+      f'({power})')
+  return launches, check.max_err
+
+
+def phase_perturbation(model, splat_cuda, geometry, power, depth):
+  """(c) sample_perturbed_views, 16 views in chunks of 8."""
+  from se3ds_torch.inference import perturbation
+  start = np.zeros((1, 3), np.float32)
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  with CheckedStage(geometry) as check:
+    views, ms = timed_call(check, lambda: perturbation.sample_perturbed_views(
+        model, start, depth[0], PERTURBED_VIEWS, np.random.RandomState(0),
+        chunk=POSES_K))
+  launches = splat_cuda.LAUNCHES
+  chunks = -(-len(views) // POSES_K)
+  if (len(views) != PERTURBED_VIEWS or launches != 2 * chunks
+      or not all(o.pred_rgb.shape == (1, H, W, 3) for _, o in views)):
+    raise AssertionError(f'perturbation: {len(views)} views, {launches} '
+                         'launches')
+  log(f'  (c) sample_perturbed_views: {len(views)} views in {chunks} '
+      f'predict_poses chunks of {POSES_K}, {ms / len(views):.2f} ms per view '
+      f'({ms:.2f} ms in all; splat stages == plain) ({power})')
+  return launches, check.max_err
+
+
+def phase_re10k(inference, model_config, splat_cuda, geometry, power):
+  """(d) The RE10K path at full width."""
+  cfg = dataclasses.replace(
+      model_config.get_re10k_config(), ckpt_path=None, image_height=H,
+      gen_dims=128, compute_dtype='bfloat16', splat_mode='fast',
+      memory_frames=4)
+  model = inference.SE3DSModel(
+      cfg, device='cuda', generator=torch.Generator(device='cuda').manual_seed(
+          1))
+  rgb, depth = smooth_image(H, H, 3)
+  fov = torch.tensor([0.8, 0.8])
+  warps, warp_ms, warp_err = [], [0.0, 0.0], 0.0
+  for source, pad in ((rgb, -1.0), (depth, 0.0)):
+    src = torch.from_numpy(source)
+    for call in range(2):  # the first call, then a warm one
+      sync()
+      t0 = time.perf_counter()
+      got = geometry.project_perspective_image(src.cuda(), fov.cuda(), H,
+                                               pad_value=pad)
+      sync()
+      warp_ms[call] += (time.perf_counter() - t0) * 1e3
+    want = geometry.project_perspective_image(src, fov, H, pad_value=pad)
+    warp_err = max(warp_err, float((got.cpu() - want).abs().max()))
+    warps.append(got)
+  if warp_err > WARP_ATOL:
+    raise AssertionError(f'perspective warp card vs CPU {warp_err}')
+  pano_rgb = torch.clamp(warps[0], 0, 255).int()[None]
+  pano_depth = torch.clamp(warps[1][..., 0], 0, 1)[None]
+  sem = torch.zeros((1, H, W, 1), dtype=torch.int32, device='cuda')
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  with CheckedStage(geometry) as check:
+    _, add_ms = timed_call(check, lambda: model.add_to_memory(
+        pano_rgb, sem, pano_depth, np.zeros((1, 3), np.float32),
+        mask_blurred=False))
+    steps = []
+    for i in range(3):
+      out, ms = timed_call(check, lambda: model(
+          np.array([[0.1 * (i + 1), 0.05 * (i + 1), 0.0]], np.float32),
+          add_preds_to_memory=True))
+      steps.append(ms)
+  launches = splat_cuda.LAUNCHES
+  intrinsics = torch.diag(torch.tensor([float(H), float(H), 1.0],
+                                       device='cuda'))
+  view = lambda: geometry.get_perspective_from_equirectangular_image(
+      out.pred_rgb[0].float(), intrinsics, torch.eye(3, device='cuda'), H, H)
+  _, first_persp_ms = timed_call(check, view)
+  persp, persp_ms = timed_call(check, view)
+  coverage = float(out.proj_mask.mean())
+  if (launches != 6 or persp.shape != (H, H, 3)
+      or not torch.isfinite(persp).all() or not 0 < coverage < 1):
+    raise AssertionError(f're10k: {launches} launches, {persp.shape}, '
+                         f'coverage {coverage}')
+  log(f'  (d) RE10K config (unmasked, uncompacted cloud): 512x512 source '
+      f'warped to {H}x{W}, RGB + depth, in {warp_ms[0]:.2f} ms (first calls)'
+      f' and {warp_ms[1]:.2f} ms (warm), card vs CPU max |d| '
+      f'{warp_err:.3g} (atol {WARP_ATOL}); add_to_memory '
+      f'(mask_blurred=False) {add_ms:.2f} ms, 3 feedback steps '
+      f'{[round(m, 2) for m in steps]} ms (guidance coverage {coverage:.4f}, '
+      f'splat stages == plain), {H}x{H} perspective view {first_persp_ms:.2f}'
+      f' ms (first call), {persp_ms:.2f} ms (warm) ({power})')
+  del model
+  return launches, check.max_err
+
+
+def phase_pointcloud(model, power, pano):
+  """(e) write_memory_as_pointcloud after one frame."""
+  import tempfile
+  model.reset_memory()
+  model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
+  sync()
+  fd, path = tempfile.mkstemp(suffix='.ply', dir=BUILD_DIR)
+  os.close(fd)
+  try:
+    t0 = time.perf_counter()
+    model.write_memory_as_pointcloud(path)
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    with open(path, 'rb') as f:
+      header = f.read(200).split(b'\n')
+  finally:
+    os.remove(path)
+  points = int(header[2].split()[-1])
+  if header[0] != b'ply' or points < 0.5 * H * W:
+    raise AssertionError(f'.ply header {header[:3]}')
+  log(f'  (e) write_memory_as_pointcloud after one frame: {points} points, '
+      f'{size / 2**20:.1f} MiB in {seconds:.2f} s ({power})')
+
+
+def phase_checkpoint(inference, model_config, splat_cuda, power, model_dir):
+  """(f) Serving the EMA generator of phase 8's port-trained checkpoint."""
+  from se3ds_torch.models import folding
+  from se3ds_torch.models import generator as generator_lib
+  from se3ds_torch.train import checkpoints
+  cfg = model_config.SE3DSConfig(
+      ckpt_path=model_dir, image_height=128, gen_dims=128,
+      resnet_version='101', memory_frames=3, splat_mode='fast')
+  torch.backends.cudnn.allow_tf32 = False
+  sync()
+  t0 = time.perf_counter()
+  restored = inference.SE3DSModel(cfg, device='cuda')
+  sync()
+  restore_s = time.perf_counter() - t0
+  manager = checkpoints.CheckpointManager(model_dir)
+  bundle = torch.load(manager._path(manager.latest_step()), map_location='cpu',
+                      weights_only=True, mmap=True)
+  ema = generator_lib.ResNetGenerator(gen_dims=128, resnet_version='101',
+                                      spectral_fold=False).cuda()
+  ema.load_state_dict(bundle['ema_generator'])
+  built = inference.SE3DSModel(dataclasses.replace(cfg, ckpt_path=None),
+                               device='cuda')
+  built.model.load_state_dict(folding.serving_state_dict(ema))
+  del bundle, ema
+  weights = [m.model.state_dict() for m in (restored, built)]
+  if weights[0].keys() != weights[1].keys() or not all(
+      torch.equal(weights[0][k], weights[1][k]) for k in weights[0]):
+    raise AssertionError('checkpoint: restored weights != serving_state_dict')
+  rgb, sem, depth = synthetic_pano(128, 4)
+  outs = []
+  # cuDNN's default transposed-convolution algorithms may sum in any
+  # order; deterministic ones make two models' outputs comparable bit
+  # for bit.
+  torch.backends.cudnn.deterministic = True
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  try:
+    for model in (restored, built):
+      model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32))
+      step = model(np.array([[0.3, 0.1, 0.0]], np.float32),
+                   add_preds_to_memory=True)
+      traj = model.predict_trajectory(np.array([[0.5, 0.1, 0.0]],
+                                               np.float32))
+      outs.append([x for x in (*step, *traj) if x is not None])
+  finally:
+    torch.backends.cudnn.deterministic = False
+  launches = splat_cuda.LAUNCHES
+  if launches != 8 or not all(torch.equal(a, b) for a, b in zip(*outs)):
+    raise AssertionError(f'checkpoint: {launches} launches, or the restored '
+                         'model and the one built from serving_state_dict '
+                         'disagree')
+  log(f'  (f) SE3DSModel(ckpt_path=<phase 8 model_dir>) at image 128, '
+      f'gen_dims 128, ResNet-101: restored the EMA generator of step '
+      f'{manager.latest_step()} in {restore_s:.2f} s (model build included); '
+      'weights, and outputs with cuDNN\'s deterministic algorithms, '
+      'torch.equal to a model built from folding.serving_state_dict of the '
+      f'same bundle ({power})')
+  return launches
+
+
+def phase_serving_api(inference, model_config, splat_cuda, geometry, power,
+                      model_dir):
+  log('== phase 9: the serving API at full width (1024x512, gen_dims 128, '
+      'ResNet-101, bf16, fast, memory_frames 8) ==')
+  pano = synthetic_pano(H, 0)
+  launches, max_err = {}, 0.0
+  model, launches['a'], err = phase_ring(inference, model_config, splat_cuda,
+                                         geometry, power, pano)
+  max_err = max(max_err, err)
+  launches['b'], err = phase_poses(model, splat_cuda, geometry, power)
+  max_err = max(max_err, err)
+  launches['c'], err = phase_perturbation(model, splat_cuda, geometry, power,
+                                          pano[2])
+  max_err = max(max_err, err)
+  launches['d'], err = phase_re10k(inference, model_config, splat_cuda,
+                                   geometry, power)
+  max_err = max(max_err, err)
+  phase_pointcloud(model, power, pano)
+  del model
+  torch.cuda.empty_cache()
+  launches['f'] = phase_checkpoint(inference, model_config, splat_cuda, power,
+                                   model_dir)
+  log(f'  splat_fast point passes launched by phase 9: {launches}')
+  return sum(launches.values()), max_err
 
 
 def main():
@@ -1391,7 +1788,14 @@ def main():
   run('6b', phase_eval_small_vs_cpu, inference, model_config)
   run('7', phase_train, power)
   run('7b', phase_train_small_vs_cpu)
-  cli_launches, cli_err = run('8', phase_cli, splat_cuda, power)
+  cli_launches, cli_err, cli_model_dir, cli_root = run(
+      '8', phase_cli, splat_cuda, power)
+  try:
+    api_launches, api_err = run('9', phase_serving_api, inference,
+                                model_config, splat_cuda, geometry, power,
+                                cli_model_dir)
+  finally:
+    shutil.rmtree(cli_root)
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']
@@ -1403,6 +1807,8 @@ def main():
       f'launch {exact["point"]:.4f} ms + resolve {exact["resolve"]:.4f} ms,'
       f' whole stage {exact["stage"]:.4f} ms, plain {exact["plain"]:.4f} ms,'
       f' bound {exact["bound"]:.4f} ms')
+  log(f'splat_fast launches: {launches} in phase 4, {api_launches} in '
+      'phase 9 (the kernels line counts both)')
   log(f'splat_exact launches: {exact_launches} in phase 6\'s rollout, '
       f'{cli_launches} in phase 8\'s TEST (the kernels line counts phase 8)')
   log(f'chip_smoke took {time.perf_counter() - START:.1f} s; by phase: '
@@ -1412,7 +1818,8 @@ def main():
   log(json.dumps({'kernels': [{
       'name': 'splat_fast', 'route': 'cuda',
       'source': 'se3ds_torch/csrc/splat.cu', 'replaces': SPLAT_REPLACES,
-      'launches': launches, 'max_abs_err': max(max_err, main_err),
+      'launches': launches + api_launches,
+      'max_abs_err': max(max_err, main_err, api_err),
       'ms': fast_ms, 'plain_ms': fast['plain'], 'bound_ms': fast['bound'],
       'bound_by': 'bytes', 'library_ms': None}, {
           'name': 'splat_exact', 'route': 'cuda',

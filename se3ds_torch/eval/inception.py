@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from se3ds_torch.ops import image as image_ops
+
 log = logging.getLogger('se3ds_torch')
 
 POOL_DIM = 2048
@@ -283,10 +285,8 @@ def resize_for_inception(images: torch.Tensor) -> torch.Tensor:
   triangle filter widened by the scale) when downsampling."""
   if images.shape[1:3] == (INPUT_SIZE, INPUT_SIZE):
     return images
-  resized = F.interpolate(images.permute(0, 3, 1, 2),
-                          size=(INPUT_SIZE, INPUT_SIZE), mode='bilinear',
-                          align_corners=False, antialias=True)
-  return resized.permute(0, 2, 3, 1)
+  return image_ops.resize(images, (INPUT_SIZE, INPUT_SIZE), 'linear',
+                          antialias=True)
 
 
 @torch.no_grad()

@@ -11,8 +11,8 @@ only the frames written so far.
 
 Everything runs on the card unless the caller passes `device='cpu'`;
 random augmentations draw from an explicit `torch.Generator`. Batches
-come from any iterator of numpy (or tensor) dicts; the JAX package's data
-pipeline is not ported yet (ROADMAP.md).
+come from any iterator of numpy (or tensor) dicts, such as the port's
+`data.datasets.R2RVideoDataset` (what `Trainer.test` evaluates).
 """
 
 from __future__ import annotations

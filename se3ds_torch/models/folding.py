@@ -125,18 +125,28 @@ def torch_state_dict_from_flax(variables: Mapping[str, Any],
   return state
 
 
+def fold_state_dict(state: Mapping[str, torch.Tensor], spectral_convs
+                    ) -> Dict[str, torch.Tensor]:
+  """A trainable generator's state_dict in the serving form: the kernel
+  of each module named in `spectral_convs` divided by sigma from its
+  stored `u` (what its eval forward convolves with), and no `u`
+  buffers."""
+  out = {k: v for k, v in state.items() if not k.endswith('.u')}
+  for name in spectral_convs:
+    weight = state[f'{name}.weight']
+    out[f'{name}.weight'] = fold_kernel(weight, state[f'{name}.u']).to(
+        weight.dtype)
+  return out
+
+
 def serving_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
   """The state_dict of the serving (`spectral_fold=True`) form of a
-  trainable generator: each unfolded SpectralConv's kernel divided by
-  sigma from its stored `u` (what its eval forward convolves with), and
-  no `u` buffers."""
-  state = {k: v for k, v in model.state_dict().items()
-           if not k.endswith('.u')}
-  for name, module in model.named_modules():
-    if isinstance(module, layers.SpectralConv) and not module.fold:
-      state[f'{name}.weight'] = fold_kernel(module.weight.detach(),
-                                            module.u).to(module.weight.dtype)
-  return state
+  trainable generator (`fold_state_dict` of its unfolded
+  SpectralConvs)."""
+  return fold_state_dict(
+      model.state_dict(),
+      [name for name, module in model.named_modules()
+       if isinstance(module, layers.SpectralConv) and not module.fold])
 
 
 def adam_state_from_flax(optimizer: torch.optim.Optimizer,

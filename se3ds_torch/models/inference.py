@@ -7,15 +7,18 @@ invalid points keep their void feature value, which the splat skips.
 Unlike the JAX package, which returns new buffers, the port writes the
 memory buffers in place; `get_memory_state()` copies them by default.
 
-Not ported yet (ROADMAP.md): ring memory, `predict_poses`, the device
-mesh, `.ply` export, and restoring an Orbax checkpoint (pass
-`variables=` instead).
+Everything of the JAX API is here (strict and ring memory, the fused
+trajectory, `predict_poses`, `.ply` export, restoring a checkpoint) but
+the device mesh (ROADMAP.md). `ckpt_path` names a checkpoint the port
+wrote (`train.checkpoints.restore_ema_generator`); the JAX package's
+Orbax checkpoints are restored there and passed in with `variables=`.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from se3ds_torch import constants
@@ -24,6 +27,7 @@ from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import model_config
 from se3ds_torch.ops import geometry
+from se3ds_torch.train import checkpoints
 
 
 class PanoData(NamedTuple):
@@ -230,23 +234,27 @@ class SE3DSModel:
     device: 'cuda' (default; raises without a card) or 'cpu'.
     generator: seeds the random weights when `variables` is None and
       `config.ckpt_path` is None (default: seed 0 on `device`).
+
+    With `variables` None and `config.ckpt_path` set, the weights come
+    from that checkpoint (`checkpoints.restore_ema_generator`: a file of
+    `save_ema_generator`, or the EMA generator of a `CheckpointManager`
+    directory). A missing path raises FileNotFoundError and an Orbax
+    directory of the JAX package raises ValueError; neither falls back to
+    random weights.
     """
     self.device = device_lib.resolve(device, 'SE3DSModel')
     if config.batch_size < 1:
       raise ValueError(f'batch_size must be >= 1, got {config.batch_size}.')
-    if config.memory_mode != 'strict':
-      raise NotImplementedError(
-          f"memory_mode={config.memory_mode!r}: only 'strict' is ported "
-          '(ring memory is a later ROADMAP item).')
+    if config.memory_mode not in ('strict', 'ring'):
+      raise ValueError(f"memory_mode must be 'strict' or 'ring', got "
+                       f'{config.memory_mode!r}.')
     if config.splat_mode not in geometry.SPLAT_MODES:
       raise NotImplementedError(
           f'splat_mode={config.splat_mode!r} is not ported yet; use one of '
           f'{geometry.SPLAT_MODES} (ROADMAP.md item A10 lists the rest).')
-    if variables is None and config.ckpt_path is not None:
-      raise NotImplementedError(
-          f'Restoring the Orbax checkpoint {config.ckpt_path!r} needs JAX; '
-          'restore it with the JAX package and pass its variables with '
-          'variables=, or set ckpt_path=None for random weights.')
+    # Ring mode: writes past capacity wrap onto the oldest frame's slots
+    # instead of raising (SE3DSConfig.memory_mode).
+    self._ring = config.memory_mode == 'ring'
     self.config = config
     self.batch_size = config.batch_size
     self.height = config.image_height
@@ -269,6 +277,10 @@ class SE3DSModel:
     if variables is not None:
       self.model.load_state_dict(
           folding.torch_state_dict_from_flax(variables, self.model))
+    elif config.ckpt_path is not None:
+      self.model.load_state_dict(checkpoints.restore_ema_generator(
+          config.ckpt_path, target=self.model, device=self.device))
+      print('Restored from', config.ckpt_path)
     else:
       if generator is None:
         generator = torch.Generator(device=self.device).manual_seed(0)
@@ -288,10 +300,18 @@ class SE3DSModel:
   def reset_memory(self):
     self._memory = init_memory(self.batch_size, self.capacity,
                                self.rgb_capacity, device=self.device)
+    # _frames_written = VALID frames (the live splat extent, <=
+    # memory_frames); _total_frames = frames ever written (drives the ring
+    # write slot). Equal until the first ring wrap.
     self._frames_written = 0
+    self._total_frames = 0
     # True where the slot holds real semantics (written by add_to_memory);
     # predicted frames write all-void semantics and are skipped.
     self._sem_real = [False] * self.config.memory_frames
+
+  def _next_write_slot(self) -> int:
+    """Frame slot the next write lands in (wraps in ring mode)."""
+    return self._total_frames % self.config.memory_frames
 
   def _sem_frames_live(self) -> int:
     """1 + the highest slot holding real semantics (0 when none)."""
@@ -299,6 +319,7 @@ class SE3DSModel:
     return (max(real) + 1) if real else 0
 
   def _count_frames(self, new_frames: int = 1):
+    self._total_frames += new_frames
     self._frames_written = min(self.config.memory_frames,
                                self._frames_written + new_frames)
 
@@ -323,15 +344,47 @@ class SE3DSModel:
         rgb_coords=self._tensor(state.rgb_coords).clone(),
         rgb=self._tensor(state.rgb).clone(),
         cursor=int(state.cursor))
+    # The cursor counts VALID slots, so a ring-wrapped state restores as
+    # full, and later ring writes start over at slot 0 (slot 0 is the
+    # oldest frame by convention after a restore).
     frame_points = self.height * self.width
     self._frames_written = min(self.config.memory_frames,
                                -(-self._memory.cursor // frame_points))
+    self._total_frames = self._frames_written
     # A restored state carries no per-slot provenance: treat every
     # written slot as holding real semantics (exact, only slower).
     self._sem_real = [i < self._frames_written
                       for i in range(self.config.memory_frames)]
 
+  def write_memory_as_pointcloud(self, filename: str):
+    """Writes the valid RGB memory points of batch 0 to an ASCII .ply
+    file, byte for byte as the JAX package writes it (numpy float32
+    scalars formatted by `str.format`)."""
+    mem = self._memory
+    xyz = mem.rgb_coords[0, 0:3].T.cpu().numpy()  # (RGB_CAP, 3)
+    rgb = mem.rgb[0].cpu().numpy()  # (RGB_CAP, 3)
+    cursor = self._frames_written * self._rgb_frame_points
+    valid = np.all(rgb[:cursor] != constants.INVALID_RGB_VALUE, axis=-1)
+    xyz, rgb = xyz[:cursor][valid], rgb[:cursor][valid]
+    with open(filename, 'w') as fp:
+      fp.write('ply\n')
+      fp.write('format ascii 1.0 \n')
+      fp.write('element vertex %d\n' % xyz.shape[0])
+      for axis in 'xyz':
+        fp.write(f'property float {axis}\n')
+      for channel in ('red', 'green', 'blue'):
+        fp.write(f'property uchar {channel}\n')
+      fp.write('end_header\n')
+      colours = rgb.astype(np.int64)
+      for point, colour in zip(xyz, colours):
+        fp.write('{} {} {} {} {} {} \n'.format(
+            point[0], point[1], point[2], colour[0], colour[1], colour[2]))
+
   def _check_memory_capacity(self):
+    """Raises when another frame would not fit (strict mode); ring mode
+    never raises: writes wrap onto the oldest frame."""
+    if self._ring:
+      return
     if self._frames_written >= self.config.memory_frames:
       raise ValueError(
           f'Point-cloud memory is full ({self.config.memory_frames} frames'
@@ -349,7 +402,7 @@ class SE3DSModel:
     pano_rgb = self._tensor(pano_rgb)
     self.prev_rgb_frame = (pano_rgb / device_lib.divisor(255.0, pano_rgb)
                            ).to(torch.float32)
-    slot = self._frames_written  # strict memory: the next free frame
+    slot = self._next_write_slot()
     self._memory = memory_add_pano(
         self._memory, pano_rgb, self._tensor(pano_semantic),
         self._tensor(pano_depth, torch.float32),
@@ -494,25 +547,71 @@ class SE3DSModel:
       raise ValueError('positions must contain at least one frame.')
     if self.prev_rgb_frame is None:
       raise ValueError('add_to_memory must be called before predicting.')
-    if self._frames_written + num_frames > self.config.memory_frames:
+    cap = self.config.memory_frames
+    if not self._ring and self._frames_written + num_frames > cap:
       raise ValueError(
           f'Trajectory of {num_frames} frames would exceed memory capacity '
-          f'({self._frames_written} written, {self.config.memory_frames} '
-          'total). Increase SE3DSConfig.memory_frames or reset_memory().')
-    start = self._frames_written
+          f'({self._frames_written} written, {cap} total). Increase '
+          "SE3DSConfig.memory_frames, reset_memory(), or use "
+          "memory_mode='ring' for unbounded streaming.")
+    start_slot = self._next_write_slot()
+    start_frames = self._frames_written
+    # The semantic extent from before the trajectory: predicted frames
+    # only ever turn slots void, so it bounds every frame inside it, even
+    # across a ring wrap onto real slots.
     sem_frames = self._sem_frames_live()
     per_frame = []
     for t in range(num_frames):
+      slot = (start_slot + t) % cap
       lean, self._memory, self.prev_rgb_frame = self._step_forward(
-          self._memory, self.prev_rgb_frame, positions[t],
-          write_slot=start + t, num_frames=max(1, start + t),
+          self._memory, self.prev_rgb_frame, positions[t], write_slot=slot,
+          num_frames=max(1, min(start_frames + t, cap)),
           sem_frames=sem_frames)
       per_frame.append(lean)
-      self._sem_real[start + t] = False
+      self._sem_real[slot] = False
       self._count_frames()
     stacked = {k: torch.stack([f[k] for f in per_frame])
                for k in self._LEAN_KEYS}
     return self._to_output_data(stacked)
+
+  @torch.no_grad()
+  def predict_poses(self, positions) -> OutputData:
+    """Predicts K poses from the current scene memory in one batch-K
+    forward: K splats of the shared cloud and one batch-K generator pass.
+    The memory is not modified. Requires batch_size == 1 (one scene, many
+    poses; `SE3DSConfig.batch_size` serves many scenes).
+
+    The memory and the previous frame reach the splat and the generator
+    as stride-0 batch-K views (`Tensor.expand`): no K-fold copy is made;
+    both splat kernels read points at any batch stride.
+
+    Args:
+      positions: (K, 3) world positions.
+
+    Returns:
+      OutputData batched over poses: pred_rgb is (K, H, 2H, 3) uint8.
+    """
+    if self.batch_size != 1:
+      raise ValueError('predict_poses serves many poses of ONE scene; '
+                       f'model batch_size is {self.batch_size}.')
+    positions = self._tensor(positions, torch.float32)
+    if positions.dim() != 2 or positions.shape[-1] != 3:
+      raise ValueError(
+          f'positions must be (K, 3), got {tuple(positions.shape)}.')
+    k = positions.shape[0]
+    if k < 1:
+      raise ValueError('positions must contain at least one pose.')
+    if self.prev_rgb_frame is None:
+      raise ValueError('add_to_memory must be called before predicting.')
+    bcast = lambda x: x.expand((k,) + x.shape[1:])
+    memory = self._memory._replace(
+        coords=bcast(self._memory.coords), feats=bcast(self._memory.feats),
+        rgb_coords=bcast(self._memory.rgb_coords),
+        rgb=bcast(self._memory.rgb))
+    out = self._forward(memory, bcast(self.prev_rgb_frame), positions,
+                        num_frames=max(1, self._frames_written),
+                        sem_frames=self._sem_frames_live())
+    return self._to_output_data(out)
 
   @torch.no_grad()
   def __call__(self, position, add_preds_to_memory: bool = False,
@@ -531,7 +630,7 @@ class SE3DSModel:
     sem_frames = self._sem_frames_live()
     if add_preds_to_memory:
       self._check_memory_capacity()
-      slot = self._frames_written  # strict memory: the next free frame
+      slot = self._next_write_slot()
       out, self._memory, self.prev_rgb_frame = self._step_forward(
           self._memory, self.prev_rgb_frame, position, slot,
           num_frames=num_frames, use_projected_rgb=use_projected_rgb,

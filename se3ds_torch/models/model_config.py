@@ -2,9 +2,9 @@
 `se3ds_tpu.models.model_config`, same fields and defaults).
 
 Fields the port does not serve yet raise from `SE3DSModel.__init__`
-(see ROADMAP.md): `memory_mode='ring'`, the splat modes 'sorted_packed',
-'fast_exact' and 'dual_sorted', and a set `ckpt_path` without
-`variables=`.
+(see ROADMAP.md): the splat modes 'sorted_packed', 'fast_exact' and
+'dual_sorted'. A `ckpt_path` names a checkpoint the port wrote
+(`train.checkpoints.restore_ema_generator`).
 """
 
 import dataclasses
@@ -48,13 +48,31 @@ class SE3DSConfig:
   project_semantics: bool = True
   # JAX buffer donation; the port writes its memory in place instead.
   donate_memory: bool = True
-  # 'strict' raises when memory is full; 'ring' is not ported yet.
+  # Behaviour when a memory write would exceed `memory_frames` capacity:
+  #   'strict' (default) raise from the host API before the write — the
+  #            documented fixed-capacity contract (the reference instead
+  #            grows its memory unboundedly, models.py:239-245).
+  #   'ring'   overwrite the OLDEST frame's slots (a sliding window over
+  #            the last `memory_frames` observations): unbounded streaming
+  #            trajectories at constant device memory. Below capacity the
+  #            two modes are bit-identical; after a wrap the memory holds
+  #            exactly the most recent `memory_frames` frames.
   memory_mode: str = 'strict'
 
 
 def get_config() -> SE3DSConfig:
   """Returns the Val-Unseen config for SE3DS."""
   return SE3DSConfig(ckpt_path=constants.CKPT_UNSEEN, resnet_version='101')
+
+
+def get_re10k_config() -> SE3DSConfig:
+  """Returns the RE10K config for SE3DS."""
+  return SE3DSConfig(ckpt_path=constants.CKPT_RE10K, resnet_version='101',
+                     use_blurred_mask=False,
+                     # The RE10K flow writes perspective-derived panos
+                     # with mask_blurred=False (no pole blanking), so
+                     # the compacted RGB layout does not apply.
+                     pole_compact=False)
 
 
 def get_test_config() -> SE3DSConfig:

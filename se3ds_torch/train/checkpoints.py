@@ -5,15 +5,22 @@ One bundle per step, as the reference's tf.train.Checkpoint holds it:
 {generator, discriminator, ema_generator, g_optimizer, d_optimizer,
 global_step}, in `model_dir/<step>/train_state.pt`. The numeric step
 directories are what `utils.task_manager` polls.
+
+`save_ema_generator` writes a generator's serving weights standalone;
+`restore_ema_generator` reads them back, or the EMA generator of a
+bundle, for `SE3DSModel(ckpt_path=...)`.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
+from torch import nn
+
+from se3ds_torch.models import folding
 
 TRAIN_DONE = 'TRAIN_DONE'
 STATE_FILE = 'train_state.pt'
@@ -99,6 +106,80 @@ class CheckpointManager:
     load_bundle(state, torch.load(self._path(step), map_location='cpu',
                                   weights_only=True))
     return state
+
+
+# What an Orbax checkpoint directory of the JAX package holds.
+_ORBAX_MARKERS = ('_CHECKPOINT_METADATA', '_METADATA', 'manifest.ocdbt')
+
+
+def _is_orbax(path: str) -> bool:
+  """Whether `path` (a directory) is an Orbax checkpoint or a directory of
+  them (one per step)."""
+  entries = os.listdir(path)
+  if any(marker in entries for marker in _ORBAX_MARKERS):
+    return True
+  return any(_is_orbax(os.path.join(path, e)) for e in entries
+             if e.isdigit() and os.path.isdir(os.path.join(path, e)))
+
+
+def save_ema_generator(path: str, generator: nn.Module) -> None:
+  """Saves a generator's serving weights (`folding.serving_state_dict`)
+  standalone to the file `path`, written whole, then renamed."""
+  partial = path + '.partial'
+  torch.save(folding.serving_state_dict(generator), partial)
+  os.replace(partial, path)
+
+
+def restore_ema_generator(path: str, target: Optional[nn.Module] = None,
+                          device='cpu') -> Dict[str, torch.Tensor]:
+  """Restores the serving state_dict of a generator.
+
+  Args:
+    path: a file written by `save_ema_generator`; or the EMA generator of
+      a train-state bundle: a `CheckpointManager` directory (its latest
+      step), a step directory, or a bundle file.
+    target: the serving (`spectral_fold=True`) generator the weights are
+      for; a bundle's EMA generator is trainable, and `target`'s folded
+      SpectralConvs name the kernels to fold.
+    device: where the tensors are returned (and a bundle's folded).
+
+  Raises:
+    FileNotFoundError: nothing at `path`, or a directory without a
+      checkpoint.
+    ValueError: an Orbax checkpoint of the JAX package (restore it there
+      and pass its variables to `SE3DSModel(variables=...)`), or a bundle
+      without `target`.
+  """
+  if not os.path.exists(path):
+    raise FileNotFoundError(f'No checkpoint at {path!r}.')
+  if os.path.isdir(path):
+    if not os.path.exists(os.path.join(path, STATE_FILE)):
+      if _is_orbax(path):
+        raise ValueError(
+            f'{path!r} is an Orbax checkpoint of the JAX package, which the '
+            'port does not read: restore it with '
+            'se3ds_tpu.train.checkpoints.restore_ema_generator and pass its '
+            'variables to SE3DSModel(variables=...).')
+      manager = CheckpointManager(path)
+      latest = manager.latest_step()
+      if latest is None:
+        raise FileNotFoundError(f'No checkpoint in the directory {path!r}.')
+      path = manager._path(latest)
+    else:
+      path = os.path.join(path, STATE_FILE)
+  # Mapped, not read: of a bundle only the EMA generator's tensors are
+  # read, and moved to `device`.
+  state = torch.load(path, map_location='cpu', weights_only=True, mmap=True)
+  bundle = 'ema_generator' in state
+  if bundle:
+    if target is None:
+      raise ValueError('Restoring the EMA generator of a train-state bundle '
+                       'needs target=, the serving generator it is for.')
+    state = state['ema_generator']
+  state = {k: v.to(device) for k, v in state.items()}
+  if not bundle:
+    return state
+  return folding.fold_state_dict(state, folding.spectral_conv_names(target))
 
 
 def mark_training_done(model_dir: str) -> None:

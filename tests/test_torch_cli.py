@@ -43,6 +43,9 @@ from se3ds_tpu.eval import metrics as metrics_j
 from se3ds_tpu.train import trainer as trainer_j  # noqa: F401 (registers GAN)
 from test_torch_train import _numpy_state
 from test_torch_train_layers import _compiled
+from test_torch_serving import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(REPO, 'configs', 'tiny_test.gin')

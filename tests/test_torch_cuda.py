@@ -385,3 +385,139 @@ def test_cli_train_then_test_on_the_card(card, tmp_path):
   scores = {k: float(v) for k, v in row.items() if '/eval_image/' in k}
   assert len(scores) == 6
   assert all(np.isfinite(v) for v in scores.values()), scores
+
+
+def _recording_stage(monkeypatch):
+  """Records every call of the splat stage (cloned inputs and outputs)."""
+  calls = []
+  stage = geometry.project_memory_equirect
+
+  def recording(feats, xyz1, offset, *args, **kwargs):
+    out = stage(feats, xyz1, offset, *args, **kwargs)
+    # Clones: the memory is written in place by later steps.
+    calls.append((tuple(a.clone() if torch.is_tensor(a) else a
+                        for a in (feats, xyz1, offset) + args), kwargs,
+                  [o if o is None else o.clone() for o in out],
+                  (feats.stride(0), xyz1.stride(0))))
+    return out
+
+  monkeypatch.setattr(geometry, 'project_memory_equirect', recording)
+  return calls
+
+
+def _assert_stage_equals_plain(calls):
+  """Each recorded kernel stage torch.equal to the plain version on the
+  card, on the same inputs."""
+  assert calls
+  for args, kwargs, out, _ in calls:
+    kwargs = {k: v for k, v in kwargs.items() if k != 'need_depth'}
+    plain = geometry.project_memory_equirect_plain(*args, **kwargs)
+    for got, want in zip(out, plain):
+      if got is not None:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_ring_steps_across_the_wrap_equal_the_plain_splat(card, monkeypatch):
+  """Ring memory of 3 frames: one real frame, 4 feedback steps (the write
+  wraps at the third) and a trajectory of 2; every splat torch.equal to
+  its plain version."""
+  model = inference.SE3DSModel(dataclasses.replace(
+      model_config.get_test_config(), memory_mode='ring'))
+  rs = np.random.RandomState(1)
+  model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
+                      rs.randint(0, 42, (1, 32, 64, 1)),
+                      rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  calls = _recording_stage(monkeypatch)
+  for i in range(4):
+    model(np.array([[0.2 * i, 0.05, 0]], np.float32),
+          add_preds_to_memory=True)
+  model.predict_trajectory(np.array([[0.5, 0, 0], [0.6, 0.1, 0]],
+                                    np.float32))
+  assert (model._frames_written, model._total_frames) == (3, 7)
+  assert len(calls) == 2 * 6
+  _assert_stage_equals_plain(calls)
+
+
+@pytest.mark.cuda
+def test_predict_poses_on_a_stride_0_memory_equals_the_plain_splat(
+    card, monkeypatch):
+  """K = 4 poses read the memory at batch stride 0; the guidance equals
+  the plain version's and K single calls'."""
+  model = inference.SE3DSModel(model_config.get_test_config())
+  rs = np.random.RandomState(2)
+  model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
+                      rs.randint(0, 42, (1, 32, 64, 1)),
+                      rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  poses = rs.uniform(-0.4, 0.4, (4, 3)).astype(np.float32)
+  calls = _recording_stage(monkeypatch)
+  out = model.predict_poses(poses)
+  assert [c[3] for c in calls] == [(0, 0), (0, 0)]
+  _assert_stage_equals_plain(calls)
+  singles = [model(p[None]) for p in poses]
+  for key in ('proj_rgb', 'proj_semantic', 'proj_depth', 'proj_mask'):
+    assert torch.equal(getattr(out, key),
+                       torch.cat([getattr(s, key) for s in singles]))
+
+
+@pytest.mark.cuda
+def test_re10k_cloud_equals_the_plain_splat(card, monkeypatch):
+  """The RE10K config's unmasked, uncompacted cloud, from a perspective
+  source warped on the card."""
+  cfg = dataclasses.replace(model_config.get_re10k_config(), ckpt_path=None,
+                            image_height=32, gen_dims=4,
+                            resnet_version='tiny', memory_frames=3)
+  model = inference.SE3DSModel(cfg)
+  rs = np.random.RandomState(3)
+  fov = torch.tensor([0.8, 0.8], device=card)
+  rgb = geometry.project_perspective_image(
+      torch.from_numpy(rs.rand(32, 32, 3).astype(np.float32) * 255).to(card),
+      fov, 32, pad_value=-1.0)
+  depth = geometry.project_perspective_image(
+      torch.from_numpy(rs.uniform(0.1, 0.5, (32, 32, 1)).astype(
+          np.float32)).to(card), fov, 32)[..., 0]
+  model.add_to_memory(torch.clamp(rgb, 0, 255).int()[None],
+                      torch.zeros((1, 32, 64, 1), dtype=torch.int32,
+                                  device=card),
+                      torch.clamp(depth, 0, 1)[None],
+                      np.zeros((1, 3), np.float32), mask_blurred=False)
+  calls = _recording_stage(monkeypatch)
+  for i in range(2):
+    model(np.array([[0.1 * i, 0.05, 0]], np.float32),
+          add_preds_to_memory=True)
+  _assert_stage_equals_plain(calls)
+
+
+@pytest.mark.cuda
+def test_perspective_functions_on_the_card_equal_the_cpu(card):
+  """Warps and resizes on the card against the CPU. Tolerance: atol 0.02
+  on values in [0, 255] (the card's and the CPU's trig round by an ULP
+  apart; a bilinear sample moves by up to ~255 ULP of its coordinate),
+  1e-3 for the resizes (float32 sums in other orders)."""
+  from se3ds_torch.ops import image
+  rs = np.random.RandomState(4)
+  persp = torch.from_numpy(rs.rand(24, 24, 3).astype(np.float32) * 255)
+  pano = torch.from_numpy(rs.rand(16, 32, 3).astype(np.float32) * 255)
+  rotation = torch.from_numpy(np.linalg.qr(rs.randn(3, 3))[0].astype(
+      np.float32))
+  intrinsics = torch.tensor([[30., 0, 12], [0, 28, 11], [0, 0, 1]])
+  fov = torch.tensor([0.8, 0.9])
+  cases = {
+      'project_perspective_image': lambda d: geometry.project_perspective_image(
+          persp.to(d), fov.to(d), 16, rotations=(0.1, 0.4), pad_value=-1.0),
+      'get_perspective_from_equirectangular_image':
+          lambda d: geometry.get_perspective_from_equirectangular_image(
+              pano.to(d), intrinsics.to(d), rotation.to(d), 20, 24),
+      'rotate_pano': lambda d: geometry.rotate_pano(
+          pano[None].to(d), rotation[None].to(d)),
+      'resize cubic': lambda d: image.resize(pano.to(d), (40, 80), 'bicubic'),
+      'resize linear antialias': lambda d: image.resize(
+          pano.to(d), (9, 18), 'bilinear', antialias=True),
+  }
+  for name, fn in cases.items():
+    got, want = fn(card).cpu(), fn(torch.device('cpu'))
+    atol = 1e-3 if name.startswith('resize') else 2e-2
+    assert got.shape == want.shape, name
+    assert float((got - want).abs().max()) <= atol, name

@@ -25,6 +25,9 @@ from se3ds_tpu.models import generator as generator_j
 from se3ds_tpu.models import model_config as config_j
 from se3ds_tpu.ops import geometry as geometry_j
 from test_torch_serving import random_flax_variables
+from test_torch_serving import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 DEPTH_SCALE = 10.0
 
@@ -41,15 +44,21 @@ def _compiled(fn, *args):
 
 
 def test_crop_pano_matches_jax():
-  """4-D and 3-D panos; tolerance: none."""
+  """4-D and 3-D panos; tolerance: none for the crop. Resized back to the
+  original size (antialiased bilinear): atol 1e-6 on values in [0, 1],
+  the two libraries sum the filter taps in different orders."""
   rs = np.random.RandomState(0)
   for shape in ((2, 20, 40, 3), (20, 40, 1)):
     pano = rs.rand(*shape).astype(np.float32)
     got = geometry_t.crop_pano(torch.from_numpy(pano)).numpy()
     want = np.asarray(geometry_j.crop_pano(jnp.asarray(pano)))
     np.testing.assert_array_equal(got, want)
-  with pytest.raises(NotImplementedError):
-    geometry_t.crop_pano(torch.zeros((1, 8, 16, 3)), resize_to_original=True)
+    got = geometry_t.crop_pano(torch.from_numpy(pano),
+                               resize_to_original=True).numpy()
+    want = np.asarray(geometry_j.crop_pano(jnp.asarray(pano),
+                                           resize_to_original=True))
+    assert got.shape == pano.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
 def test_augment_crop_matches_jax_draws():

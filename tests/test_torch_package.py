@@ -50,7 +50,12 @@ def test_port_files_found():
           'se3ds_torch/data/example_pb.py', 'se3ds_torch/data/tensorproto.py',
           'se3ds_torch/data/native_loader.py', 'se3ds_torch/data/datasets.py',
           'se3ds_torch/data/synthetic.py', 'se3ds_torch/config.py',
-          'se3ds_torch/main.py', 'chip_smoke.py'} <= names
+          'se3ds_torch/main.py', 'se3ds_torch/ops/image.py',
+          'se3ds_torch/inference/perturbation.py',
+          'se3ds_torch/examples/mp3d_trajectory_demo.py',
+          'se3ds_torch/examples/re10k_video_demo.py',
+          'se3ds_torch/examples/vln_augmentation_demo.py',
+          'chip_smoke.py'} <= names
 
 
 def test_kernel_build_flags():

@@ -43,6 +43,21 @@ PRED_PIXELS = 0.02
 POSITIONS = ([[0.4, 0.1, 0.0]], [[0.8, -0.2, 0.05]])
 
 
+@pytest.fixture(scope='module')
+def one_torch_thread():
+  """One PyTorch thread for a module's tests: at the test size each op is
+  tiny, and with the suite's parallel workers a thread pool per worker
+  oversubscribes the cores, which slows such ops by an order of magnitude
+  (an OpenMP barrier waits for descheduled threads)."""
+  threads = torch.get_num_threads()
+  torch.set_num_threads(1)
+  yield
+  torch.set_num_threads(threads)
+
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
+
+
 def random_flax_variables(config, seed):
   """Random folded generator variables ({'params', 'batch_stats'}) for
   `config`, made from the Flax shapes without compiling anything."""
@@ -204,14 +219,18 @@ def test_no_card_needs_an_explicit_cpu_device(monkeypatch):
     inference_t.SE3DSModel(cfg, device='cuda')
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+  """An unported splat mode, and an Orbax checkpoint of the JAX package
+  (the port reads only its own checkpoints; never random weights
+  instead)."""
   base = config_t.get_test_config()
-  for overrides in (dict(memory_mode='ring'),
-                    dict(splat_mode='sorted_packed'),
-                    dict(ckpt_path='some/checkpoint')):
-    with pytest.raises(NotImplementedError):
-      inference_t.SE3DSModel(dataclasses.replace(base, **overrides),
-                             device='cpu')
+  with pytest.raises(NotImplementedError):
+    inference_t.SE3DSModel(
+        dataclasses.replace(base, splat_mode='sorted_packed'), device='cpu')
+  (tmp_path / '_CHECKPOINT_METADATA').write_text('{}')
+  with pytest.raises(ValueError, match='Orbax'):
+    inference_t.SE3DSModel(
+        dataclasses.replace(base, ckpt_path=str(tmp_path)), device='cpu')
 
 
 def test_cpu_serving_never_launches_the_kernel():

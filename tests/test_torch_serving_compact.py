@@ -10,6 +10,9 @@ import pytest
 
 from test_torch_serving import assert_serving_close
 from test_torch_serving import serve_both
+from test_torch_serving import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 
 @pytest.fixture(scope='module')

@@ -48,6 +48,9 @@ from se3ds_tpu.train import losses as losses_j
 from se3ds_tpu.train import state as state_j
 from test_torch_train_layers import _compiled
 from test_torch_train_layers import _random_variables
+from test_torch_serving import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 SIZE = 32
 G_CONFIG = dict(gen_dims=2, z_dim=2, resnet_version='tiny')

@@ -27,6 +27,9 @@ from se3ds_torch.models import layers as layers_t
 from se3ds_tpu.models import discriminator as disc_j
 from se3ds_tpu.models import generator as gen_j
 from se3ds_tpu.models import layers as layers_j
+from test_torch_serving import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 ATOL = 1e-5
 STATE_ATOL = 1e-6
