@@ -1,5 +1,5 @@
 """Drives the PyTorch/CUDA port of SE3DS (serving and its API, FID eval
-and GAN training) on one NVIDIA card.
+and GAN training, remat and the data-parallel path) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -49,8 +49,10 @@ Phases, in order; any failure raises and the process exits non-zero:
      chunk, random weights from seed 0 and synthetic batches, 4 steps of
      one cluster each: every metric finite, G and D parameters moved, the
      EMA equal to G after the assign step and not after the decay steps,
-     ms per step, peak device memory, the final checkpoint (written,
-     sized, deleted), then the 'train' image grid.
+     ms per step, FLOPs per step (`Trainer.step_flops`, counted on the
+     meta device) and TFLOP/s against the dense TF32 peak, peak device
+     memory, the final checkpoint (written, sized, deleted), then the
+     'train' image grid.
   7b. The tests' tiny trainer: one train step on the card (TF32 off)
      against the CPU and against the CPU in float64, within stated
      tolerances, and a checkpoint round trip on the card, bit-equal.
@@ -83,6 +85,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      seconds, its weights and outputs torch.equal to a model built from
      folding.serving_state_dict of the same bundle. Phase 8's directory
      is deleted after phase 9.
+  10. Full-width highres training (configs/highres/highres.gin: 1024x512,
+     G and D as phase 7), as phase 7 measures it: (a) without remat at
+     HIGHRES_CHUNK a chunk, the largest that fits; (b) with remat at the
+     recipe's share of one card, 8 a chunk. Then on the tests' tiny
+     trainer: (d) two steps with remat against two storing activations,
+     cuDNN deterministic, torch.equal throughout, every `u` and BatchNorm
+     statistic advanced; (e) a step through a world-1 NCCL process group
+     (`file://` rendezvous: the synced BatchNorm, the gradient all_reduce,
+     the checkpoint consolidation) against the plain step, float64,
+     within stated tolerances.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -845,19 +857,28 @@ def phase_eval_small_vs_cpu(inference, model_config):
 
 TRAIN_CHUNK = 16  # one card's share of lowres train_batch_size=128 on 8
 TRAIN_STEPS = 4  # one warm-up step and 3 timed steps
+HIGHRES_GIN = os.path.join(REPO, 'configs', 'highres', 'highres.gin')
+# The largest chunk that trains without remat (found with
+# `python -m se3ds_torch.profile_training --gin configs/highres/highres.gin
+# --chunk N`, one process per N; PERF.md section 6, PR 7).
+HIGHRES_CHUNK = 4
+HIGHRES_REMAT_CHUNK = 8  # one card's share of highres train_batch_size 64 on 8
+TF32_PEAK = 495e12  # H100 SXM dense TF32 FLOP/s (data sheet)
 
 
-def phase_train(power):
-  log('== phase 7: full-width lowres training (256x128, gen_dims 128, '
-      'ResNet-101, D dis_dims 128 n_dis 2 n_layers 6, float32) ==')
+def watched_train(gin, chunk, power, remat=False):
+  """`Trainer.train` on synthetic batches at a recipe's full width
+  (its gin file; one card's `chunk` a chunk, TRAIN_STEPS steps of one
+  cluster), float32 with TF32 convs. Times each of the trainer's own
+  `train_cluster` calls (synchronised), checks every metric finite, the
+  parameters moved and the EMA assigned then decayed, counts the step's
+  FLOPs and returns (trainer, state, median ms, model_dir)."""
   import tempfile
   from se3ds_torch import config as config_lib
   from se3ds_torch.train import checkpoints as ckpt_lib
   from se3ds_torch.train import state as state_lib
   from se3ds_torch.train import trainer as trainer_lib
   torch.backends.cudnn.allow_tf32 = True
-  log('  TF32 on for cuDNN convolutions (PyTorch\'s default; matmuls stay '
-      'float32)')
   torch.cuda.empty_cache()
   torch.cuda.reset_peak_memory_stats()
   os.makedirs(BUILD_DIR, exist_ok=True)
@@ -865,13 +886,12 @@ def phase_train(power):
   # The recipe's values and widths from its gin file; the batch and the
   # schedule cut to one card and a few steps.
   config_lib.clear_config()
-  config_lib.parse_config_files_and_bindings([LOWRES_GIN])
+  config_lib.parse_config_files_and_bindings([gin])
   trainer = config_lib.apply_config(
-      'GAN', model_dir=model_dir, train_batch_size=TRAIN_CHUNK,
+      'GAN', model_dir=model_dir, train_batch_size=chunk,
       num_batched_steps=1, log_every_steps=1,
-      save_every_steps=10 * TRAIN_STEPS, device='cuda')
-  batches = trainer_lib.synthetic_batches(
-      2 * TRAIN_CHUNK, trainer.image_size, 0)
+      save_every_steps=10 * TRAIN_STEPS, remat=remat, device='cuda')
+  batches = trainer_lib.synthetic_batches(2 * chunk, trainer.image_size, 0)
 
   # Watch the trainer's own cluster calls: time each (synchronised), keep
   # its metrics, and check the parameters and the EMA around them.
@@ -927,11 +947,22 @@ def phase_train(power):
     log(f'  step {i}{" (warm-up)" if i == 0 else ""}: {ms:.2f} ms; ' +
         ', '.join(f'{k} {v:.6g}' for k, v in sorted(metrics.items())))
   timed = seen['ms'][1:]
-  log(f'  ms per step of {2 * TRAIN_CHUNK} examples ({TRAIN_CHUNK} per '
-      f'chunk, 1 D-only + 1 G+D update), 3 timed steps: {timed} -> median '
-      f'{statistics.median(timed):.2f} ms, '
-      f'{2 * TRAIN_CHUNK / statistics.median(timed) * 1e3:.2f} examples/sec '
-      f'({power})')
+  median = statistics.median(timed)
+  # A batch's shapes (the stream itself may still be in the trainer's
+  # prefetch thread).
+  channels = {'image': 3, 'depth': 1, 'proj_image': 3, 'proj_depth': 1,
+              'proj_mask': 1, 'blurred_mask': 1}
+  flops = trainer.step_flops({
+      k: np.empty((2 * chunk, trainer.image_size, 2 * trainer.image_size, c),
+                  np.float32) for k, c in channels.items()})
+  log(f'  ms per step of {2 * chunk} examples ({chunk} per chunk, 1 D-only '
+      f'+ 1 G+D update, remat {remat}), {len(timed)} timed steps: {timed} '
+      f'-> median {median:.2f} ms, {2 * chunk / median * 1e3:.2f} '
+      f'examples/sec ({power})')
+  log(f'  FLOPs per step (utils/flops.py, matmuls and convs'
+      f'{", the recompute included" if remat else ""}): {flops:.6g} -> '
+      f'{flops / median / 1e9:.2f} TFLOP/s, '
+      f'{flops / median * 1e3 / TF32_PEAK:.4f} of the dense TF32 peak')
   log(f'  peak device memory {peak / 2**30:.2f} GiB; Trainer.train '
       f'{train_s:.2f} s, of which its final checkpoint {seen["save_s"]:.2f} s')
   moved = {}
@@ -943,7 +974,7 @@ def phase_train(power):
         f'tensors moved, largest change {max(deltas):.3g}')
     if moved[part] < 0.9 * len(deltas):
       raise AssertionError(f'{part} parameters did not move')
-  if seen['ema_equal'] != [True, False, False, False]:
+  if seen['ema_equal'] != [True] + [False] * (TRAIN_STEPS - 1):
     raise AssertionError(f'EMA equal to G after each step: '
                          f'{seen["ema_equal"]}, expected the assign step '
                          'then the decay steps')
@@ -960,7 +991,15 @@ def phase_train(power):
   log(f'  final checkpoint at step {steps[0]}: {size / 2**30:.2f} GiB on disk'
       ' (with the event file), TRAIN_DONE written')
   shutil.rmtree(model_dir)
+  return trainer, state, median
 
+
+def phase_train(power):
+  log('== phase 7: full-width lowres training (256x128, gen_dims 128, '
+      'ResNet-101, D dis_dims 128 n_dis 2 n_layers 6, float32) ==')
+  log('  TF32 on for cuDNN convolutions (PyTorch\'s default; matmuls stay '
+      'float32)')
+  trainer, state, _ = watched_train(LOWRES_GIN, TRAIN_CHUNK, power)
   t0 = time.perf_counter()
   grid, _ = trainer.get_image_grid(state, 'train')
   grid_s = time.perf_counter() - t0
@@ -1739,6 +1778,190 @@ def phase_serving_api(inference, model_config, splat_cuda, geometry, power,
   return sum(launches.values()), max_err
 
 
+def phase_highres(power):
+  log('== phase 10: full-width highres training (1024x512, gen_dims 128, '
+      'ResNet-101, D dis_dims 128 n_dis 2 n_layers 6, float32) ==')
+  torch.cuda.empty_cache()
+  log(f'  device memory allocated before: '
+      f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB')
+  log(f'  (a) without remat, {HIGHRES_CHUNK} per chunk (the largest that '
+      'fits):')
+  watched_train(HIGHRES_GIN, HIGHRES_CHUNK, power)
+  log(f'  (b) with remat, {HIGHRES_REMAT_CHUNK} per chunk (the recipe\'s '
+      'share of one card):')
+  watched_train(HIGHRES_GIN, HIGHRES_REMAT_CHUNK, power, remat=True)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.cuda.empty_cache()
+
+
+def phase_torchrun(power, cli_root):
+  log('== phase 10f: highres through the CLI under torchrun '
+      '--nproc_per_node 1 (remat, 8 a chunk, phase 8\'s records) ==')
+  from se3ds_torch.train import checkpoints as ckpt_lib
+  data = os.path.join(cli_root, 'data')
+  model_dir = os.path.join(cli_root, 'highres')
+  steps = CLI_TRAIN_FILES * CLI_RECORDS_PER_FILE // (2 * HIGHRES_REMAT_CHUNK)
+  bindings = [
+      f"R2RImageDataset.data_dir = '{data}/'",
+      f"R2RVideoDataset.data_dir = '{data}/'", 'GAN.num_epochs = 1',
+      f"R2RImageDataset.num_examples_override = {{'train': "
+      f"{CLI_TRAIN_FILES * CLI_RECORDS_PER_FILE}, 'val': 8}}",
+      f'GAN.train_batch_size = {HIGHRES_REMAT_CHUNK}', 'GAN.remat = True',
+      'GAN.num_batched_steps = 1', 'GAN.log_every_steps = 1',
+      f'GAN.save_every_steps = {steps}']
+  argv = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+          '--nproc_per_node', '1', '-m', 'se3ds_torch.main', '--mode', 'TRAIN',
+          '--model_dir', model_dir, '--gin_config', HIGHRES_GIN]
+  for binding in bindings:
+    argv += ['--gin_bindings', binding]
+  train_log = os.path.join(cli_root, 'torchrun.log')
+  t0 = time.perf_counter()
+  with open(train_log, 'w') as out:
+    proc = subprocess.run(argv, cwd=REPO, stdout=out,
+                          stderr=subprocess.STDOUT, timeout=900, check=False)
+  train_s = time.perf_counter() - t0
+  with open(train_log) as f:
+    lines = f.readlines()
+  if proc.returncode:
+    log(''.join(lines[-40:]))
+    raise AssertionError(f'torchrun ... se3ds_torch.main exited '
+                         f'{proc.returncode}')
+  scalars = event_scalars(model_dir)
+  bad = [(step, tag) for step, tag, v in scalars if not np.isfinite(v)]
+  rates = [(step, v) for step, tag, v in scalars if tag == 'steps_per_sec']
+  saved = ckpt_lib.CheckpointManager(model_dir).all_steps()
+  if bad or len(rates) != steps or saved != [steps] or (
+      not ckpt_lib.is_training_done(model_dir)):
+    log(''.join(lines[-40:]))
+    raise AssertionError(f'{len(rates)} steps logged, non-finite {bad}, '
+                         f'checkpoints {saved}')
+  world = [line.strip() for line in lines if 'TRAIN on' in line]
+  if not world or not world[-1].endswith('rank 0 of 1'):
+    raise AssertionError(f'not a torchrun rank: {world}')
+  log(f'  {world[-1]}; {train_s:.2f} s wall; '
+      'steps/sec as logged: ' + ', '.join(
+          f'step {s} {v:.4f} ({1e3 / v:.1f} ms)' for s, v in rates)
+      + f'; checkpoint at step {saved[0]}, TRAIN_DONE ({power})')
+
+
+def float64_state(trainer):
+  """`trainer.create_state()` in float64 (the same seeded weights)."""
+  from se3ds_torch.models import folding
+  from se3ds_torch.train import state as state_lib
+  generator, discriminator = (m.to(trainer.device)
+                              for m in trainer._build_models())
+  rng = torch.Generator(device=trainer.device).manual_seed(trainer.seed)
+  folding.init_random_(generator, rng)
+  folding.init_random_(discriminator, rng)
+  generator.double().dtype = torch.float64
+  return state_lib.create_train_state(
+      generator, discriminator.double(), trainer.g_lr, trainer.d_lr,
+      trainer.beta1, trainer.beta2, trainer.data)
+
+
+# (e): float64, the tolerances of tests/test_torch_distributed.py: the
+# group's path (BatchNorm over summed statistics, Flax's E[x^2] - E[x]^2)
+# and the plain one differ by what stays float32 in both (the clip's
+# norms, the plain BatchNorm's running statistics).
+GROUP_TOLERANCES = {'params': 1e-8, 'stats': 1e-7, 'u': 1e-9,
+                    'exp_avg': 1e-6, 'exp_avg_sq': 1e-6, 'adam_steps': 0.0}
+
+
+def phase_remat_and_group():
+  log('== phase 10 (d, e): the tiny trainer: remat against no remat, a '
+      'world-1 NCCL group against none ==')
+  import tempfile
+  import torch.distributed as dist
+  from se3ds_torch.models import layers
+  from se3ds_torch.train import checkpoints as ckpt_lib
+  from se3ds_torch.train import state as state_lib
+  from se3ds_torch.train import trainer as trainer_lib
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cudnn.deterministic = True
+  torch.backends.cudnn.benchmark = False
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix='train_dp_', dir=BUILD_DIR)
+  try:
+    # (d) Two steps (the EMA assign, then a decay) each way from one state.
+    trainer = tiny_trainer('cuda', os.path.join(root, 'remat'))
+    batches = [trainer.device_batch(b) for b, _ in zip(
+        trainer_lib.synthetic_batches(4, 32, 5), range(2))]
+    runs = []
+    for remat in (False, True):
+      state = trainer.create_state()
+      start = copy.deepcopy(ckpt_lib.state_bundle(state))
+      hp = trainer.hp._replace(remat=remat, num_batched_steps=1)
+      metrics = [state_lib.train_step(state, b, hp) for b in batches]
+      runs.append((start, state, metrics))
+    (start, plain, m_plain), (start_r, remat, m_remat) = runs
+    same = (ckpt_lib.bundles_equal(start, start_r)
+            and all(torch.equal(a[k], b[k]) for a, b in zip(m_plain, m_remat)
+                    for k in a)
+            and ckpt_lib.bundles_equal(ckpt_lib.state_bundle(plain),
+                                       ckpt_lib.state_bundle(remat)))
+    if not same:
+      log('  remat differs: ' + ', '.join(
+          f'{k} {v:.3g}' for k, v in sorted(
+              state_lib.state_differences(remat, plain).items())))
+      raise AssertionError('remat and stored activations differ on the card')
+    after = ckpt_lib.state_bundle(remat)
+    stale = [f'{part}.{k}' for part in ('generator', 'discriminator',
+                                        'ema_generator')
+             for k, v in start[part].items()
+             if k.endswith(('.u', 'running_mean', 'running_var'))
+             and torch.equal(v, after[part][k])]
+    if stale:
+      raise AssertionError(f'state that did not advance: {stale[:5]}')
+    log('  (d) 2 steps with remat: metrics, G, D, the EMA and both Adam '
+        'states torch.equal to the steps storing activations (cuDNN '
+        'deterministic); every u and BatchNorm statistic advanced')
+
+    # (e) The data-parallel path at world 1 on NCCL, in float64.
+    batch = {k: v.double() for k, v in trainer.device_batch(
+        next(trainer_lib.synthetic_batches(4, 32, 6))).items()}
+    alone = float64_state(trainer)
+    m_alone = state_lib.train_step(alone, batch, trainer.hp)
+    synced = []
+    norm = layers.SyncBatchNorm._global_batch_norm
+
+    def counted(module, x):
+      synced.append(1)
+      return norm(module, x)
+
+    dist.init_process_group('nccl', init_method=f'file://{root}/rendezvous',
+                            world_size=1, rank=0)
+    layers.SyncBatchNorm._global_batch_norm = counted
+    try:
+      grouped = tiny_trainer('cuda', os.path.join(root, 'group'))
+      if (grouped.data.world_size, dist.get_backend()) != (1, 'nccl'):
+        raise AssertionError(f'{grouped.data}, {dist.get_backend()}')
+      state = float64_state(grouped)
+      m_group = state_lib.train_step(state, batch, grouped.hp)
+      manager = ckpt_lib.CheckpointManager(grouped.model_dir)
+      manager.save(state.step, state)
+    finally:
+      layers.SyncBatchNorm._global_batch_norm = norm
+      dist.destroy_process_group()
+    restored = float64_state(tiny_trainer('cuda', os.path.join(root, 'x')))
+    manager.restore(restored)
+    rel = {k: abs(float(m_group[k]) - float(m_alone[k]))
+           / max(abs(float(m_alone[k])), 1e-6) for k in m_alone}
+    diffs = state_lib.state_differences(restored, alone)
+    log(f'  (e) world-1 NCCL group ({len(synced)} synced BatchNorm calls), '
+        f'its checkpoint restored without a group, against no group: '
+        f'metrics rel {max(rel.values()):.3g}; ' + ', '.join(
+            f'{k} {v:.3g}' for k, v in sorted(diffs.items())))
+    over = [k for k, v in rel.items() if v > 1e-6] + [
+        k for k, v in diffs.items()
+        if v > GROUP_TOLERANCES.get(k.split('_', 1)[-1], float('inf'))]
+    if over or not synced:
+      raise AssertionError(f'the NCCL path disagrees: {over}')
+    log(f'  within {GROUP_TOLERANCES}, metrics rtol 1e-6')
+  finally:
+    torch.backends.cudnn.deterministic = False
+    shutil.rmtree(root)
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -1794,6 +2017,10 @@ def main():
     api_launches, api_err = run('9', phase_serving_api, inference,
                                 model_config, splat_cuda, geometry, power,
                                 cli_model_dir)
+    shutil.rmtree(cli_model_dir)  # phase 10f reads only the records
+    run('10', phase_highres, power)
+    run('10de', phase_remat_and_group)
+    run('10f', phase_torchrun, power, cli_root)
   finally:
     shutil.rmtree(cli_root)
   # A kernel's time: its point pass(es) and its resolve, on the device.

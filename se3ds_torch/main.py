@@ -8,6 +8,16 @@ The flags of the JAX package's `main.py`: `--model_dir` (or `--workdir`),
 evaluates the 'val_unseen' split), repeated `--gin_config` files and
 `--gin_bindings`. `--device` picks where it runs: the CUDA card by
 default (it raises where there is none), or 'cpu'.
+
+Data-parallel training runs one process per card under torchrun, which
+sets `WORLD_SIZE`, `RANK` and `LOCAL_RANK` (`parallel.mesh`):
+
+    torchrun --nproc_per_node 1 -m se3ds_torch.main --mode TRAIN \
+        --gin_config configs/highres/highres.gin --model_dir /tmp/se3ds \
+        --gin_bindings "GAN.remat = True"
+
+`train_batch_size` stays the global batch; each rank steps on its share.
+Without torchrun the job runs alone (world 1). TEST runs at world 1.
 """
 
 from __future__ import annotations
@@ -15,8 +25,11 @@ from __future__ import annotations
 import argparse
 import enum
 import logging
+import os
 import sys
 from typing import Optional, Sequence
+
+import torch.distributed as dist
 
 from se3ds_torch import config as config_lib
 from se3ds_torch.train import trainer  # noqa: F401 (registers GAN, ...)
@@ -60,11 +73,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
   overrides = {'test_split': 'val_unseen'} if mode is Mode.TEST_UNSEEN else {}
   model = config_lib.apply_config('GAN', model_dir=args.model_dir,
                                   device=args.device, **overrides)
-  logging.getLogger('se3ds_torch').info('%s on %s', mode.value, model.device)
-  if mode is Mode.TRAIN:
-    model.train()
-  else:
-    model.test()
+  logging.getLogger('se3ds_torch').info(
+      '%s on %s, rank %d of %d', mode.value, model.device, model.data.rank,
+      model.data.world_size)
+  try:
+    if mode is Mode.TRAIN:
+      model.train()
+    else:
+      model.test()
+  finally:
+    if 'WORLD_SIZE' in os.environ and dist.is_initialized():
+      dist.destroy_process_group()  # the group torchrun's job formed
   return 0
 
 

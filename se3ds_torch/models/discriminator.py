@@ -45,12 +45,18 @@ class SNPatchDiscriminator(nn.Module):
     # 'SAME' at k=4, stride 1: one row/column before, two after.
     self.final_conv = layers.Conv2D(previous_dim, 1, k, 1, 'SAME')
 
+  def _group(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    out = getattr(self, f'group{i}_conv')(x)
+    if i:
+      out = getattr(self, f'group{i}_norm')(out)
+    return F.leaky_relu(out, negative_slope=0.2)
+
   def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-    out = F.leaky_relu(self.group0_conv(x), negative_slope=0.2)
-    results = [out]
-    for i in range(1, self.n_layers):
-      out = getattr(self, f'group{i}_norm')(getattr(self, f'group{i}_conv')(out))
-      out = F.leaky_relu(out, negative_slope=0.2)
+    results = []
+    out = x
+    for i in range(self.n_layers):
+      out = layers.remat(self._group, i, out,
+                         state_of=(getattr(self, f'group{i}_conv'),))
       results.append(out)
     results.append(self.final_conv(out))
     return results

@@ -149,22 +149,25 @@ def serving_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
        if isinstance(module, layers.SpectralConv) and not module.fold])
 
 
-def adam_state_from_flax(optimizer: torch.optim.Optimizer,
-                         model: nn.Module, adam: Mapping[str, Any]) -> None:
-  """Sets `optimizer`'s per-parameter state from an optax Adam state
+def adam_state_from_flax(optimizer, model: nn.Module,
+                         adam: Mapping[str, Any]) -> None:
+  """Sets `optimizer`'s per-parameter state (a `parallel.mesh.Zero1Adam`
+  of `model`, which keeps its rank's shards) from an optax Adam state
   {'mu', 'nu', 'count'} (trees shaped like the Flax params of `model`)."""
-  params = dict(model.named_parameters())
+  names = [name for name, _ in model.named_parameters()]
   mu = torch_tensors_from_flax(adam['mu'])
   nu = torch_tensors_from_flax(adam['nu'])
-  if mu.keys() != params.keys():
+  if mu.keys() != set(names):
     raise ValueError(f'Adam state and {type(model).__name__} differ: '
-                     f'{sorted(mu.keys() ^ params.keys())[:5]}')
+                     f'{sorted(mu.keys() ^ set(names))[:5]}')
   step = float(np.asarray(adam['count']))
-  for name, param in params.items():
-    optimizer.state[param] = {
-        'step': torch.tensor(step, dtype=torch.float32),
-        'exp_avg': mu[name].to(param.device),
-        'exp_avg_sq': nu[name].to(param.device)}
+  (group,) = optimizer.param_groups
+  optimizer.load_state_dict({
+      'param_groups': [{**{k: v for k, v in group.items() if k != 'params'},
+                        'params': list(range(len(names)))}],
+      'state': {i: {'step': torch.tensor(step, dtype=torch.float32),
+                    'exp_avg': mu[name], 'exp_avg_sq': nu[name]}
+                for i, name in enumerate(names)}})
 
 
 def load_train_state_from_flax(state, flax_state: Mapping[str, Any]) -> None:
@@ -181,8 +184,11 @@ def load_train_state_from_flax(state, flax_state: Mapping[str, Any]) -> None:
       (state.generator, 'g_params', 'g_state'),
       (state.discriminator, 'd_params', 'd_state'),
       (state.ema, 'ema_params', 'ema_state')):
-    model.load_state_dict(torch_state_dict_from_flax(
-        {'params': flax_state[params], **flax_state[collections]}, model))
+    whole = torch_state_dict_from_flax(
+        {'params': flax_state[params], **flax_state[collections]}, model)
+    if model is state.ema:  # this rank's ZeRO-1 shards
+      whole = state.data.shard_state_dict(whole, model, state.g_opt.axes)
+    model.load_state_dict(whole)
   adam_state_from_flax(state.g_opt, state.generator, flax_state['g_opt_state'])
   adam_state_from_flax(state.d_opt, state.discriminator,
                        flax_state['d_opt_state'])

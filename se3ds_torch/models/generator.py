@@ -72,12 +72,19 @@ class ResNetEncoder(nn.Module):
                                          fused_pad=1, circular=circular_pad)
     self.final_bn = layers.SyncBatchNorm(4 * h)
 
-  def forward(self, x, mask=None):
+  def _stem(self, x, mask):
     out, update_mask = self.conv1(x, mask)
-    out = F.relu(self.act1_bn(out))
-    b1 = out
-    out = layers.max_pool_2x2_same(out)
-    update_mask = layers.max_pool_2x2_same(update_mask)
+    b1 = F.relu(self.act1_bn(out))
+    return (b1, layers.max_pool_2x2_same(b1),
+            layers.max_pool_2x2_same(update_mask))
+
+  def _final(self, x, mask):
+    out, _ = self.final_conv(x, mask)
+    return F.relu(self.final_bn(out))
+
+  def forward(self, x, mask=None):
+    b1, out, update_mask = layers.remat(self._stem, x, mask,
+                                        state_of=(self.conv1,))
     out, update_mask = self.stack1(out, update_mask)
     s1 = out
     out, update_mask = self.stack2(out, update_mask)
@@ -85,8 +92,8 @@ class ResNetEncoder(nn.Module):
     out, update_mask = self.stack3(out, update_mask)
     s3 = out
     out, update_mask = self.stack4(out, update_mask)
-    out, update_mask = self.final_conv(out, update_mask)
-    out = F.relu(self.final_bn(out))
+    out = layers.remat(self._final, out, update_mask,
+                       state_of=(self.final_conv,))
     return out, [b1, s1, s2, s3]
 
 
@@ -128,13 +135,17 @@ class ResNetDecoder(nn.Module):
     out, _ = getattr(self, name)(x)
     return F.relu(getattr(self, f'{name}_bn')(out))
 
-  def forward(self, x, skip):
+  def _upc(self, x):
     out = F.leaky_relu(self.upc_bn(self.upc_conv(x)), negative_slope=0.2)
-    out = layers.upsample_2x_nearest(out)
-    out = self._agent('agent4', out)
+    return self._agent('agent4', layers.upsample_2x_nearest(out))
+
+  def forward(self, x, skip):
+    out = layers.remat(self._upc, x, state_of=(self.upc_conv, self.agent4))
     for i in range(4):
       out = getattr(self, f'deconv{i + 1}')(out)
-      out = out + self._agent(f'agent{3 - i}', skip[3 - i])
+      agent = f'agent{3 - i}'
+      out = out + layers.remat(self._agent, agent, skip[3 - i],
+                               state_of=(getattr(self, agent),))
     out = self.final_conv(out)
     return self.final_deconv(out)
 
@@ -153,12 +164,18 @@ class _ConvChain(nn.Module):
                                        'VALID', fused_pad=1,
                                        circular=circular_pad))
 
+  def _layer(self, i: int, x):
+    x = getattr(self, f'conv{i}')(getattr(self, f'bn{i}')(x))
+    if i < self.num_convs - 1:
+      # Keras LeakyReLU() default slope.
+      x = F.leaky_relu(x, negative_slope=0.3)
+    return x
+
   def forward(self, x):
+    # One segment per layer: the output heads run at full resolution.
     for i in range(self.num_convs):
-      x = getattr(self, f'conv{i}')(getattr(self, f'bn{i}')(x))
-      if i < self.num_convs - 1:
-        # Keras LeakyReLU() default slope.
-        x = F.leaky_relu(x, negative_slope=0.3)
+      x = layers.remat(self._layer, i, x,
+                       state_of=(getattr(self, f'conv{i}'),))
     return x
 
 

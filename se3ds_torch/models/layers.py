@@ -20,17 +20,32 @@ argument:
   in training. An unfolded `PartialConv` with `spectral_norm` keeps its
   inert `u` up to date in training and convolves with the raw kernel.
 * `SyncBatchNorm` normalises with the batch statistics in training and
-  updates its running statistics by Flax's rule.
+  updates its running statistics by Flax's rule; under a
+  `torch.distributed` process group the statistics are those of the
+  global batch.
+
+Rematerialisation (`remat`, inside `rematerialise()`): the models run
+their blocks as segments of `torch.utils.checkpoint`, which keeps each
+segment's inputs and recomputes the rest in the backward pass. The
+layers update state inside `forward` (`u`, the running statistics), so
+a segment's recompute sees the `u` its forward started from and writes
+no state: each update happens once per forward, as under the JAX
+package's functional `jax.checkpoint`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import contextlib
+import threading
+from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax/Keras: r = 0.99 * r + 0.01 * batch statistic.
@@ -40,6 +55,68 @@ IntPair = Union[int, Tuple[int, int]]
 
 def _to_pair(v: IntPair) -> Tuple[int, int]:
   return (v, v) if isinstance(v, int) else tuple(v)
+
+
+# Per thread: whether `remat` checkpoints (set by `rematerialise`, read in
+# the thread that runs the forward) and whether a segment is being
+# recomputed (set around the recompute, in the thread of the backward).
+_REMAT = threading.local()
+
+
+@contextlib.contextmanager
+def rematerialise(enabled: bool = True):
+  """Within: `remat` runs its segments under `torch.utils.checkpoint`
+  (where gradients are on)."""
+  previous = getattr(_REMAT, 'enabled', False)
+  _REMAT.enabled = enabled
+  try:
+    yield
+  finally:
+    _REMAT.enabled = previous
+
+
+def recomputing() -> bool:
+  """Whether a rematerialised segment is being recomputed: layers then
+  write no state."""
+  return getattr(_REMAT, 'recomputing', False)
+
+
+def remat(fn: Callable, *args, state_of: Iterable[nn.Module] = ()):
+  """`fn(*args)`, one checkpointed segment inside `rematerialise()`.
+
+  `state_of` are the modules whose state `fn` reads: their `u` buffers
+  are put back to the values this forward started from while the
+  segment is recomputed, then to the advanced values. The running
+  statistics are never read in training, so they need no such care;
+  `recomputing()` keeps every layer from writing state twice.
+  Non-reentrant checkpoints: the train step differentiates with
+  `torch.autograd.grad`, which the reentrant variant does not support.
+  The models draw no random numbers, so no RNG state is replayed.
+  """
+  if not (getattr(_REMAT, 'enabled', False) and torch.is_grad_enabled()):
+    return fn(*args)
+  states = [buffer for module in state_of
+            for name, buffer in module.named_buffers()
+            if name.rsplit('.', 1)[-1] == 'u']
+  started = [u.clone() for u in states]
+
+  @contextlib.contextmanager
+  def replay():
+    advanced = [u.clone() for u in states]
+    for u, value in zip(states, started):
+      u.copy_(value)
+    _REMAT.recomputing = True
+    try:
+      yield
+    finally:
+      _REMAT.recomputing = False
+      for u, value in zip(states, advanced):
+        u.copy_(value)
+
+  return checkpoint_lib.checkpoint(
+      fn, *args, use_reentrant=False, preserve_rng_state=False,
+      context_fn=lambda: (contextlib.nullcontext(), replay()))
+
 
 
 def pad2d(x: torch.Tensor, padding: int, circular_pad: bool = False,
@@ -115,8 +192,14 @@ def mask_window_sum(mask: torch.Tensor, kh: int, kw: int, strides: IntPair,
 
 def circular_conv2d(x: torch.Tensor, weight: torch.Tensor, strides: IntPair,
                     pad: int, circular: bool) -> torch.Tensor:
-  """`pad2d(x, pad, circular)` followed by a VALID convolution (OIHW)."""
-  return F.conv2d(pad2d(x, pad, circular_pad=circular), weight,
+  """`pad2d(x, pad, circular)` followed by a VALID convolution (OIHW).
+
+  A zero pad is the convolution's own, as the JAX package pads in
+  training: no padded copy of `x` is made (and kept for the backward).
+  """
+  if not circular:
+    return F.conv2d(x, weight, stride=_to_pair(strides), padding=pad)
+  return F.conv2d(pad2d(x, pad, circular_pad=True), weight,
                   stride=_to_pair(strides))
 
 
@@ -189,8 +272,16 @@ class _Conv(nn.Module):
       return circular_conv2d(x, weight, self.strides, self.fused_pad,
                              self.wraps)
     kh, kw = weight.shape[-2:]
-    x = _pad_for(x, kh, kw, self.strides, self.padding, 0, False)
-    return F.conv2d(x, weight, stride=self.strides)
+    if self.padding.upper() != 'SAME':
+      x = _pad_for(x, kh, kw, self.strides, self.padding, 0, False)
+      return F.conv2d(x, weight, stride=self.strides)
+    # The symmetric part of TF's SAME pad is the convolution's own; the
+    # odd row and column, after, is padded here.
+    top, bottom = _same_pads(x.shape[-2], kh, self.strides[0])
+    left, right = _same_pads(x.shape[-1], kw, self.strides[1])
+    if bottom > top or right > left:
+      x = F.pad(x, (0, right - left, 0, bottom - top))
+    return F.conv2d(x, weight, stride=self.strides, padding=(top, left))
 
   def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
     if self.bias is None:
@@ -226,7 +317,7 @@ class SpectralConv(_Conv):
     if self.fold:
       return self._add_bias(self._conv(x))
     weight, u_hat = normalized_kernel(self.weight, self.u)
-    if self.training:
+    if self.training and not recomputing():
       self.u.copy_(u_hat)
     return self._add_bias(self._conv(x, weight))
 
@@ -254,7 +345,7 @@ class PartialConv(_Conv):
     kh, kw = self.weight.shape[-2:]
     if mask is None:
       mask = torch.ones_like(feature[:, :1])
-    if self.u is not None and self.training:
+    if self.u is not None and self.training and not recomputing():
       with torch.no_grad():
         self.u.copy_(normalized_kernel(self.weight, self.u)[1])
     eps = 1e-6
@@ -330,7 +421,11 @@ class SyncBatchNorm(nn.Module):
   r = 0.99 * r + 0.01 * batch for both running statistics, with the
   biased variance (PyTorch's own update uses momentum 0.1 and the
   unbiased variance). Flax computes the variance as E[x^2] - E[x]^2
-  clipped at 0; this is the two-pass value, equal up to rounding.
+  clipped at 0; without a process group this is the two-pass value,
+  equal up to rounding. Under a `torch.distributed` process group the
+  batch is the global one, as GSPMD normalises it: the per-channel
+  count, sum and sum of squares are summed over the ranks with the
+  gradient flowing through, and the variance is Flax's E[x^2] - E[x]^2.
   """
 
   def __init__(self, features: int):
@@ -345,12 +440,34 @@ class SyncBatchNorm(nn.Module):
       return F.batch_norm(x, self.running_mean, self.running_var,
                           self.weight, self.bias, training=False,
                           eps=BN_EPSILON)
-    with torch.no_grad():
-      var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-      for stat, value in ((self.running_mean, mean), (self.running_var, var)):
-        stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * value)
+    if dist.is_initialized():
+      return self._global_batch_norm(x)
+    if not recomputing():
+      with torch.no_grad():
+        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+        self._update_statistics(mean, var)
     return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                         eps=BN_EPSILON)
+
+  @torch.no_grad()
+  def _update_statistics(self, mean: torch.Tensor, var: torch.Tensor):
+    for stat, value in ((self.running_mean, mean), (self.running_var, var)):
+      stat.copy_(BN_MOMENTUM * stat + (1 - BN_MOMENTUM) * value)
+
+  def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = torch.full((1,), xf.numel() / xf.shape[1], device=x.device)
+    sums = torch.cat([count, xf.sum(dim=(0, 2, 3)),
+                      (xf * xf).sum(dim=(0, 2, 3))])
+    sums = dist_nn.all_reduce(sums)
+    total, channel_sum, channel_sq = sums[:1], *sums[1:].chunk(2)
+    mean = channel_sum / total
+    var = torch.clamp(channel_sq / total - mean * mean, min=0.0)
+    if not recomputing():
+      self._update_statistics(mean.detach(), var.detach())
+    scale = self.weight * torch.rsqrt(var + BN_EPSILON)
+    shift = self.bias - mean * scale
+    return (xf * scale[:, None, None] + shift[:, None, None]).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):
@@ -458,7 +575,8 @@ class ResStack(nn.Module):
 
   def forward(self, x, mask=None):
     for i in range(self.num_blocks):
-      x, mask = getattr(self, f'block{i}')(x, mask)
+      block = getattr(self, f'block{i}')
+      x, mask = remat(block, x, mask, state_of=(block,))
     return x, mask
 
 
@@ -526,5 +644,6 @@ class ResStackTranspose(nn.Module):
 
   def forward(self, x):
     for i in range(self.num_blocks):
-      x = getattr(self, f'block{i}')(x)
+      block = getattr(self, f'block{i}')
+      x = remat(block, x, state_of=(block,))
     return x

@@ -1,18 +1,24 @@
-"""Where a lowres train step's time goes on the card (PyTorch profiler).
+"""Where a train step's time goes on the card (PyTorch profiler).
 
-    python -m se3ds_torch.profile_training [--chunk 16] [--steps 2] [--top 15]
+    python -m se3ds_torch.profile_training [--gin configs/lowres/lowres.gin]
+        [--chunk 16] [--remat] [--steps 2] [--top 15]
 
-Builds the lowres recipe's trainer at full width from
-configs/lowres/lowres.gin (256x128 panoramas, G gen_dims=128 ResNet-101,
-D dis_dims=128 n_dis=2 n_layers=6, float32 with TF32 convolutions,
-random weights from seed 0, `--chunk` examples per chunk), warms up with two `train_step`s on one synthetic batch, then
-profiles `--steps` more. Prints the host wall and the device's busy time
-and idle share; for each part of the step (the D-only step, each D
+Builds a recipe's trainer at full width from its gin file (lowres by
+default: 256x128 panoramas; configs/highres/highres.gin: 1024x512; both
+G gen_dims=128 ResNet-101, D dis_dims=128 n_dis=2 n_layers=6), float32
+with TF32 convolutions, random weights from seed 0, `--chunk` examples
+per chunk, activations rematerialised with `--remat`; warms up with two
+`train_step`s on one synthetic batch, then profiles `--steps` more. A
+chunk that does not fit raises the card's out-of-memory error: run one
+process per chunk to find the largest that fits. Prints the host wall
+and the device's busy time and idle share; for each part of the step
+(the D-only step, each D
 update, each backward, each clip, each Adam step, the EMA) its
 calls, its host time and the device time of the kernels it launched
 (parts nest: a D update is inside the D-only step); the device time by
-kernel (top `--top`) and the device operations per step, with the card's
-name and power limit. Needs a CUDA card.
+kernel (top `--top`) and the device operations per step; the peak device
+memory; the step's FLOPs (`Trainer.step_flops`) and TFLOP/s by the wall;
+with the card's name and power limit. Needs a CUDA card.
 """
 
 import argparse
@@ -65,7 +71,9 @@ def _ranges():
 
 def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+  parser.add_argument('--gin', default=LOWRES_GIN)
   parser.add_argument('--chunk', type=int, default=16)
+  parser.add_argument('--remat', action='store_true')
   parser.add_argument('--steps', type=int, default=2)
   parser.add_argument('--top', type=int, default=15)
   args = parser.parse_args()
@@ -75,11 +83,11 @@ def main():
       ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   torch.backends.cudnn.allow_tf32 = True
-  config_lib.parse_config_files_and_bindings([LOWRES_GIN])
+  config_lib.parse_config_files_and_bindings([args.gin])
   with tempfile.TemporaryDirectory() as model_dir:
     trainer = config_lib.apply_config(
         'GAN', model_dir=model_dir, train_batch_size=args.chunk,
-        device='cuda')
+        remat=args.remat, device='cuda')
   state = trainer.create_state()
   batch = trainer.device_batch(next(trainer_lib.synthetic_batches(
       trainer.d_step_per_g_step * args.chunk, trainer.image_size, 0)))
@@ -107,6 +115,8 @@ def main():
   events.sort(key=lambda e: e.self_device_time_total, reverse=True)
   device_us = sum(e.self_device_time_total for e in events)
   print(power)
+  print(f'{os.path.basename(args.gin)} at image {trainer.image_size}, '
+        f'remat {args.remat}')
   print(f'{args.steps} steps of {2 * args.chunk} examples: wall '
         f'{wall_us / 1e3 / args.steps:.2f} ms/step, device busy '
         f'{device_us / 1e3 / args.steps:.2f} ms/step, idle share '
@@ -133,6 +143,9 @@ def main():
         f'{sum(e.count for e in events) / args.steps:.0f}')
   print(f'peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}'
         ' GiB')
+  flops = trainer.step_flops(batch)
+  print(f'{flops:.6g} FLOPs per step (utils/flops.py): '
+        f'{flops / (wall_us / args.steps) / 1e6:.2f} TFLOP/s by the wall')
 
 
 if __name__ == '__main__':

@@ -6,6 +6,11 @@ One bundle per step, as the reference's tf.train.Checkpoint holds it:
 global_step}, in `model_dir/<step>/train_state.pt`. The numeric step
 directories are what `utils.task_manager` polls.
 
+Under ZeRO-1 (a world above 1) the bundle is consolidated: every rank
+takes part in gathering the shards, rank 0 alone writes, and the file is
+the one a world-1 run writes; on restore each rank reads it and keeps its
+shards.
+
 `save_ema_generator` writes a generator's serving weights standalone;
 `restore_ema_generator` reads them back, or the EMA generator of a
 bundle, for `SE3DSModel(ckpt_path=...)`.
@@ -26,21 +31,26 @@ TRAIN_DONE = 'TRAIN_DONE'
 STATE_FILE = 'train_state.pt'
 
 
-def state_bundle(state) -> dict:
-  """The 6-way bundle of a `train.state.TrainState`."""
-  return {'step': state.step,
-          'generator': state.generator.state_dict(),
-          'discriminator': state.discriminator.state_dict(),
-          'ema_generator': state.ema.state_dict(),
-          'g_optimizer': state.g_opt.state_dict(),
-          'd_optimizer': state.d_opt.state_dict()}
+def state_bundle(state) -> Optional[dict]:
+  """The 6-way bundle of a `train.state.TrainState`. At a world above 1
+  every rank calls it: rank 0 gets the bundle, the others None."""
+  bundle = {'step': state.step,
+            'generator': state.generator.state_dict(),
+            'discriminator': state.discriminator.state_dict(),
+            'ema_generator': state.data.gather_state_dict(state.ema,
+                                                          state.g_opt.axes),
+            'g_optimizer': state.g_opt.state_dict(),
+            'd_optimizer': state.d_opt.state_dict()}
+  return bundle if state.data.is_chief else None
 
 
 def load_bundle(state, bundle: dict) -> None:
-  """Loads a bundle into `state`'s modules and optimizers, in place."""
+  """Loads a bundle into `state`'s modules and optimizers, in place
+  (this rank's shards of the sharded parts)."""
   state.generator.load_state_dict(bundle['generator'])
   state.discriminator.load_state_dict(bundle['discriminator'])
-  state.ema.load_state_dict(bundle['ema_generator'])
+  state.ema.load_state_dict(state.data.shard_state_dict(
+      bundle['ema_generator'], state.ema, state.g_opt.axes))
   state.g_opt.load_state_dict(bundle['g_optimizer'])
   state.d_opt.load_state_dict(bundle['d_optimizer'])
   state.step = int(bundle['step'])
@@ -83,16 +93,21 @@ class CheckpointManager:
   def save(self, step: int, state) -> None:
     """Writes the bundle at `step` (a no-op if that step is saved: the
     final save may coincide with a periodic one), then drops the oldest
-    steps beyond `max_to_keep`. The file is written whole, then renamed."""
+    steps beyond `max_to_keep`. The file is written whole, then renamed.
+    At a world above 1 every rank calls it and rank 0 writes; all return
+    once the file is there."""
     if step in self.all_steps():
       return
-    directory = os.path.dirname(self._path(step))
-    os.makedirs(directory, exist_ok=True)
-    partial = self._path(step) + '.partial'
-    torch.save(state_bundle(state), partial)
-    os.replace(partial, self._path(step))
-    for old in self.all_steps()[:-self.max_to_keep]:
-      shutil.rmtree(os.path.join(self.model_dir, str(old)))
+    bundle = state_bundle(state)
+    if bundle is not None:
+      directory = os.path.dirname(self._path(step))
+      os.makedirs(directory, exist_ok=True)
+      partial = self._path(step) + '.partial'
+      torch.save(bundle, partial)
+      os.replace(partial, self._path(step))
+      for old in self.all_steps()[:-self.max_to_keep]:
+        shutil.rmtree(os.path.join(self.model_dir, str(old)))
+    state.data.barrier()
 
   def restore(self, state, step: Optional[int] = None):
     """Loads the bundle of `step` (default: the latest) into `state`;

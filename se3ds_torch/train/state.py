@@ -19,18 +19,30 @@ The traps the JAX step keeps, kept here:
 * The D update then runs D in training, which stores `u`, on the detached
   fake of that same G forward.
 * Gradients are clipped per tensor, then Adam steps.
+
+Data parallel (`TrainState.data`, `parallel.mesh`): each rank steps on its
+slice of the batch; BatchNorm normalises over the global batch, the
+gradients are averaged over the ranks before the clip, Adam's moments
+and the EMA's parameters are ZeRO-1 shards (`mesh.Zero1Adam`), and the
+metrics are the global batch's. At world 1 nothing of this runs.
+
+`hp.remat` rematerialises the G and D forwards that gradients flow
+through, block by block (`layers.rematerialise`); the results equal the
+stored-activation path's.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
 
 from se3ds_torch.models import folding
+from se3ds_torch.models import layers
+from se3ds_torch.parallel import mesh
 from se3ds_torch.train import losses as losses_lib
 
 
@@ -48,43 +60,53 @@ class GANHParams(NamedTuple):
   ema_init_step: int = 0
   num_batched_steps: int = 100
   grad_clip_norm: float = 5.0
-  # Rematerialised forwards are not ported yet (torch.utils.checkpoint).
+  # Rematerialise the forwards that gradients flow through.
   remat: bool = False
 
 
 @dataclasses.dataclass
 class TrainState:
+  """At a world above 1 the EMA's parameters and the optimizers'
+  moments are this rank's ZeRO-1 shards."""
   step: int
   generator: nn.Module
   discriminator: nn.Module
   ema: nn.Module
-  g_opt: torch.optim.Optimizer
-  d_opt: torch.optim.Optimizer
+  g_opt: mesh.Zero1Adam
+  d_opt: mesh.Zero1Adam
+  data: mesh.DataParallel = mesh.DataParallel()
 
 
 def make_optimizers(generator: nn.Module, discriminator: nn.Module,
-                    g_lr: float, d_lr: float, beta1: float, beta2: float):
-  """Two Adam optimizers with Keras' epsilon 1e-7."""
-  g_opt = torch.optim.Adam(generator.parameters(), lr=g_lr,
-                           betas=(beta1, beta2), eps=1e-7)
-  d_opt = torch.optim.Adam(discriminator.parameters(), lr=d_lr,
-                           betas=(beta1, beta2), eps=1e-7)
+                    g_lr: float, d_lr: float, beta1: float, beta2: float,
+                    data: mesh.DataParallel = mesh.DataParallel()):
+  """Two Adam optimizers with Keras' epsilon 1e-7, over `data`'s
+  ZeRO-1 shards."""
+  g_opt = mesh.Zero1Adam(generator, data, lr=g_lr, betas=(beta1, beta2),
+                         eps=1e-7)
+  d_opt = mesh.Zero1Adam(discriminator, data, lr=d_lr, betas=(beta1, beta2),
+                         eps=1e-7)
   return g_opt, d_opt
 
 
 def create_train_state(generator: nn.Module, discriminator: nn.Module,
                        g_lr: float, d_lr: float, beta1: float,
-                       beta2: float) -> TrainState:
+                       beta2: float,
+                       data: Optional[mesh.DataParallel] = None
+                       ) -> TrainState:
   """A state at step 0 around initialised models; the EMA generator
-  starts as a copy of the generator."""
+  starts as a copy of the generator (its ZeRO-1 shards). `data`: the
+  initialised process group's world by default."""
   if folding.spectral_conv_names(generator):
     raise ValueError('training needs the unfolded generator '
                      '(ResNetGenerator(spectral_fold=False))')
-  ema = copy.deepcopy(generator).requires_grad_(False)
+  data = data or mesh.DataParallel.current()
   g_opt, d_opt = make_optimizers(generator, discriminator, g_lr, d_lr, beta1,
-                                 beta2)
+                                 beta2, data)
+  ema = copy.deepcopy(generator).requires_grad_(False)
+  data.shard_module_(ema, g_opt.axes)
   return TrainState(step=0, generator=generator, discriminator=discriminator,
-                    ema=ema, g_opt=g_opt, d_opt=d_opt)
+                    ema=ema, g_opt=g_opt, d_opt=d_opt, data=data)
 
 
 def _prepare_inputs(inputs: Dict[str, torch.Tensor], hp: GANHParams):
@@ -103,20 +125,17 @@ def _disc_pair_input(generated, depth_out, inputs, hp: GANHParams):
   return torch.cat([fake, real], dim=0)
 
 
-def _apply_gradients(optimizer: torch.optim.Optimizer,
-                     params: List[torch.Tensor],
+def _apply_gradients(optimizer: mesh.Zero1Adam,
                      grads: List[torch.Tensor]) -> None:
-  for param, grad in zip(params, grads):
-    param.grad = grad
-  optimizer.step()
-  optimizer.zero_grad(set_to_none=True)
+  optimizer.step(grads)
 
 
-def _gradients(loss: torch.Tensor, module: nn.Module):
-  params = list(module.parameters())
-  grads = torch.autograd.grad(loss, params, allow_unused=True,
-                              materialize_grads=True)
-  return params, list(grads)
+def _gradients(loss: torch.Tensor, module: nn.Module,
+               data: mesh.DataParallel) -> List[torch.Tensor]:
+  """d loss / d module's parameters, averaged over the ranks."""
+  grads = torch.autograd.grad(loss, list(module.parameters()),
+                              allow_unused=True, materialize_grads=True)
+  return data.average(list(grads))
 
 
 def _update_discriminator(state: TrainState, generated, depth_out, inputs,
@@ -124,15 +143,16 @@ def _update_discriminator(state: TrainState, generated, depth_out, inputs,
   """One D update on the detached fake; returns (disc loss, mean clipped
   gradient norm)."""
   discriminator = state.discriminator.train()
-  logit_outputs = discriminator(
-      _disc_pair_input(generated, depth_out, inputs, hp))
+  with layers.rematerialise(hp.remat):
+    logit_outputs = discriminator(
+        _disc_pair_input(generated, depth_out, inputs, hp))
   fake_list, real_list = losses_lib.split_disc_outputs(logit_outputs)
   _, disc_loss = losses_lib.multiscale_gan_losses(fake_list, real_list)
   disc_loss = hp.lambda_gan * disc_loss
-  params, grads = _gradients(disc_loss, discriminator)
+  grads = _gradients(disc_loss, discriminator, state.data)
   grads = losses_lib.clip_grad_per_leaf(grads, hp.grad_clip_norm)
   grad_norm = losses_lib.mean_leaf_norm(grads)
-  _apply_gradients(state.d_opt, params, grads)
+  _apply_gradients(state.d_opt, grads)
   return disc_loss.detach(), grad_norm
 
 
@@ -157,7 +177,8 @@ def train_g_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
   num_spatial_pixels = torch.clamp(
       torch.sum(target_spatial_mask, dim=(1, 2, 3)), min=1.0)
 
-  _, _, kld, depth_out, _, _, generated = generator(inputs)
+  with layers.rematerialise(hp.remat):
+    _, _, kld, depth_out, _, _, generated = generator(inputs)
   depth_loss = torch.zeros((), device=depth.device)
   if hp.predict_depth:
     depth_loss = torch.abs(depth_out - depth) * target_spatial_mask
@@ -173,24 +194,25 @@ def train_g_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
 
   # D at eval: one power iteration from the stored u, nothing stored, the
   # pre-update parameters; only G's parameters are differentiated.
-  logit_outputs = state.discriminator.eval()(
-      _disc_pair_input(generated, depth_out, inputs, hp))
+  with layers.rematerialise(hp.remat):
+    logit_outputs = state.discriminator.eval()(
+        _disc_pair_input(generated, depth_out, inputs, hp))
   fake_list, real_list = losses_lib.split_disc_outputs(logit_outputs)
   gen_gan_loss, _ = losses_lib.multiscale_gan_losses(fake_list, real_list)
   gen_gan_loss = hp.lambda_gan * gen_gan_loss
   gen_loss = gen_gan_loss + kld_term + wc + depth_loss
 
-  params, grads = _gradients(gen_loss, generator)
+  grads = _gradients(gen_loss, generator, state.data)
   grads = losses_lib.clip_grad_per_leaf(grads, hp.grad_clip_norm)
   gen_grad_norm = losses_lib.mean_leaf_norm(grads)
-  _apply_gradients(state.g_opt, params, grads)
+  _apply_gradients(state.g_opt, grads)
 
   disc_loss, dis_grad_norm = _update_discriminator(
       state, generated.detach(), depth_out.detach(), inputs, hp)
-  update_ema(state.step, state.ema, generator, hp)
+  update_ema(state.step, state.ema, generator, hp, params=state.g_opt.shards)
 
   zero = torch.zeros((), device=depth.device)
-  return {
+  return _global_metrics(state.data, {
       'dis/disc_loss': disc_loss,
       'dis/grad_norm': dis_grad_norm,
       'gen/gen_gan_loss': gen_gan_loss.detach(),
@@ -203,19 +225,41 @@ def train_g_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
       'gen/kld_nan': kld_nan_count,
       'gen/wc_loss': wc.detach(),
       'gen/grad_norm': gen_grad_norm,
-  }
+  })
+
+
+# The metric summed over the batch; the others are means.
+_SUMMED_METRICS = ('gen/kld_nan',)
+
+
+@torch.no_grad()
+def _global_metrics(data: mesh.DataParallel,
+                    metrics: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+  """The metrics of the global batch: means over the ranks, sums for
+  `_SUMMED_METRICS`."""
+  if data.world_size == 1:
+    return metrics
+  values = torch.stack(list(metrics.values()))
+  data.average([values])
+  return {k: v * data.world_size if k in _SUMMED_METRICS else v
+          for k, v in zip(metrics, values.unbind())}
 
 
 @torch.no_grad()
 def update_ema(step: int, ema: nn.Module, generator: nn.Module,
-               hp: GANHParams) -> None:
+               hp: GANHParams,
+               params: Optional[Sequence[torch.Tensor]] = None) -> None:
   """EMA of the generator's parameters and buffers (BatchNorm statistics,
   `u`), in place: assigned during the first `num_batched_steps` steps
-  from `ema_init_step`, then ema - (ema - new) * (1 - decay)."""
+  from `ema_init_step`, then ema - (ema - new) * (1 - decay). `params`:
+  the generator's parameters as the EMA holds them (this rank's ZeRO-1
+  shards, `Zero1Adam.shards`); all of them by default."""
   if step < hp.ema_init_step:
     return
   ema_tensors = [*ema.parameters(), *ema.buffers()]
-  new_tensors = [*generator.parameters(), *generator.buffers()]
+  new_tensors = [*(generator.parameters() if params is None else params),
+                 *generator.buffers()]
   if step < hp.ema_init_step + hp.num_batched_steps:
     torch._foreach_copy_(ema_tensors, new_tensors)
     return
@@ -242,8 +286,6 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
   """One cluster element on an NHWC batch dict ('image', 'depth',
   'proj_image', 'proj_depth', 'proj_mask', 'blurred_mask'): split, (k-1)
   D steps and one G+D step, then step + 1. Returns the G+D metrics."""
-  if hp.remat:
-    raise NotImplementedError('remat is not ported yet')
   chunks = split_batch(batch, hp.d_step_per_g_step)
   for chunk in chunks[:-1]:
     train_d_step(state, chunk, hp)

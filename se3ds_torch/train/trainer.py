@@ -18,10 +18,19 @@ FID/RMSE/IS -> CSV, event file and PNG dumps).
 batch dicts in place of the dataset (global batch `train_batch_size *
 d_step_per_g_step`, NHWC 'image', 'depth', 'proj_image', 'proj_depth',
 'proj_mask', 'blurred_mask').
+
+Training is data-parallel under `torchrun` (`parallel.mesh`: one process
+per card, the process group from `WORLD_SIZE`, `RANK` and `LOCAL_RANK`):
+each rank reads its shard of the files (or its slice of each chunk of
+`batches`), the step averages gradients and normalises over the global
+batch, the optimizer state and the EMA are ZeRO-1 shards, and rank 0
+alone writes checkpoints, logs, events, image grids and the operative
+config. Without `WORLD_SIZE` it runs at world 1. `test` runs at world 1.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import logging
 import os
@@ -42,9 +51,11 @@ from se3ds_torch.eval import metrics as metrics_lib
 from se3ds_torch.models import discriminator as disc_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as gen_lib
+from se3ds_torch.parallel import mesh
 from se3ds_torch.train import checkpoints as ckpt_lib
 from se3ds_torch.train import state as state_lib
 from se3ds_torch.utils import image_grid
+from se3ds_torch.utils import flops as flops_lib
 from se3ds_torch.utils import logger as logger_lib
 from se3ds_torch.utils import parameter_overview
 from se3ds_torch.utils import task_manager
@@ -168,8 +179,6 @@ class Trainer:
     del parallel_calls
     if optimizer_type != 'adam':
       raise NotImplementedError(optimizer_type)
-    if remat:
-      raise NotImplementedError('remat is not ported yet')
     self.model_dir = model_dir
     self.image_size = image_size
     self.seed = seed
@@ -197,7 +206,8 @@ class Trainer:
     self.max_to_keep = max_to_keep
     self.eval_avg_num = eval_avg_num
     self.eval_splat_mode = eval_splat_mode
-    self.device = device_lib.resolve(device, 'Trainer')
+    self.device = mesh.init_from_env(device_lib.resolve(device, 'Trainer'))
+    self.data = mesh.DataParallel.current()
     self.hp = state_lib.GANHParams(
         lambda_gan=lambda_gan, lambda_kld=lambda_kld, lambda_wc=lambda_wc,
         lambda_depth=lambda_depth, predict_depth=predict_depth,
@@ -240,7 +250,8 @@ class Trainer:
       self.train_ds = train_ds.input_fn(
           split='train', global_batch_size=train_batch_size,
           shuffle=True, shuffle_buffer_size=self.shuffle_buffer_size,
-          file_pattern=self.train_dataset_glob, seed=self.seed)
+          file_pattern=self.train_dataset_glob, seed=self.seed,
+          num_shards=self.data.world_size, shard_index=self.data.rank)
     self.eval_ds_factory = functools.partial(
         test_ds.input_fn, split=self.test_split,
         global_batch_size=self.test_batch_size, shuffle=False,
@@ -251,14 +262,30 @@ class Trainer:
     log.info('train_num %s, eval_num %s', self.train_num, self.eval_num)
 
   def create_state(self) -> state_lib.TrainState:
-    """G and D with random weights from `seed`, on the device."""
+    """G and D with random weights from `seed` (the same on every rank),
+    on the device."""
     rng = torch.Generator(device=self.device).manual_seed(self.seed)
     generator, discriminator = (m.to(self.device)
                                 for m in self._build_models())
     folding.init_random_(generator, rng)
     folding.init_random_(discriminator, rng)
     return state_lib.create_train_state(generator, discriminator, self.g_lr,
-                                        self.d_lr, self.beta1, self.beta2)
+                                        self.d_lr, self.beta1, self.beta2,
+                                        self.data)
+
+  def step_flops(self, batch) -> int:
+    """Matmul and conv FLOPs (`utils.flops`) of one `train_step` on a
+    batch shaped like `batch` (with `hp.remat`, its recompute too),
+    counted on the meta device: no memory, no compute."""
+    with torch.device('meta'):
+      generator, discriminator = self._build_models()
+    state = state_lib.create_train_state(
+        generator, discriminator, self.g_lr, self.d_lr, self.beta1,
+        self.beta2, mesh.DataParallel())
+    shapes = {k: torch.empty(v.shape, device='meta')
+              for k, v in batch.items()}
+    return flops_lib.count_flops(state_lib.train_step, state, shapes,
+                                 self.hp)
 
   def device_batch(self, batch) -> Dict[str, torch.Tensor]:
     """The train keys of a numpy batch as float32 tensors on the device."""
@@ -287,14 +314,17 @@ class Trainer:
       num_train_steps = (self.num_epochs * self.train_steps_per_epoch
                          if self.num_epochs != -1 else 1)
     else:
-      self.train_ds = batches
+      self.train_ds = (self.data.local_batch(host_batch(b),
+                                             self.d_step_per_g_step)
+                       for b in batches)
     log.info('Total training steps %s', num_train_steps)
 
     state = self.create_state()
     ckpt_mgr = ckpt_lib.CheckpointManager(self.model_dir, self.max_to_keep)
+    chief = self.data.is_chief
     if ckpt_mgr.restore(state) is not None:
       log.info('Restored from step %s', state.step)
-    else:
+    elif chief:
       log.info('Initializing from scratch.')
       parameter_overview.log_parameter_overview(
           state.generator, msg='Generator Variables')
@@ -303,9 +333,11 @@ class Trainer:
 
     start_step = state.step
     train_logger = logger_lib.UniversalLogger(
-        self.model_dir, step=start_step, num_train_steps=num_train_steps)
+        self.model_dir, step=start_step,
+        num_train_steps=num_train_steps) if chief else None
     task_mgr = task_manager.TaskManagerWithCsvResults(self.model_dir)
-    config_lib.write_operative_config(self.model_dir, start_step)
+    if chief:
+      config_lib.write_operative_config(self.model_dir, start_step)
     nbs = self.num_batched_steps
 
     log.info('Start Training...')
@@ -325,19 +357,23 @@ class Trainer:
           metric_acc = {}
           result['steps_per_sec'] = (completed - last_log_step) / max(
               time.time() - t_start, 1e-7)
-          train_logger.log_scalars(step, **result)
+          if chief:
+            train_logger.log_scalars(step, **result)
           last_log_step = completed
           t_start = time.time()
         if completed % self.save_every_steps < nbs:
           ckpt_mgr.save(state.step, state)
-          config_lib.write_operative_config(self.model_dir, state.step)
           image_dict, _ = self.get_image_grid(state, 'train')
-          train_logger.log_images(step, **image_dict)
+          if chief:
+            config_lib.write_operative_config(self.model_dir, state.step)
+            train_logger.log_images(step, **image_dict)
     finally:
       cluster_iter.close()
-      train_logger.close()
+      if chief:
+        train_logger.close()
     ckpt_mgr.save(state.step, state)
-    task_mgr.mark_training_done()
+    if chief:
+      task_mgr.mark_training_done()
     return state
 
   def _prefetch_clusters(self, nbs: int, depth: int = 2):
@@ -404,14 +440,22 @@ class Trainer:
     Returns (image_dict, output_dict); for 'eval' the output dict holds
     the EMA rollout's RGB and depth, example-major ((example, frame) in
     order), for the PNG dumps.
+
+    At a world above 1 every rank calls it (the EMA's shards are
+    gathered) and rank 0 alone makes the grid; the others get empty
+    dicts.
     """
-    generator, ema = state.generator.eval(), state.ema.eval()
+    if name_prefix == 'train':
+      with self._ds_lock:  # on every rank: their streams stay in step
+        raw = next(self.train_ds)
+    ema = self._whole_ema(state)
+    if ema is None:
+      return {}, {}
+    generator, ema = state.generator.eval(), ema.eval()
     host = lambda t: t.float().cpu().numpy()
     tile3 = lambda t: np.tile(host(t), [1, 1, 1, 3])
     output_dict = {}
     if name_prefix == 'train':
-      with self._ds_lock:
-        raw = next(self.train_ds)
       batch = self.device_batch(raw)
       chunk = {k: v[:v.shape[0] // self.d_step_per_g_step]
                for k, v in batch.items()}
@@ -478,6 +522,18 @@ class Trainer:
           value, self.show_num, f'{name_prefix}_{key}'))
     return image_dict, output_dict
 
+  def _whole_ema(self, state: state_lib.TrainState):
+    """The EMA generator: `state.ema` at world 1; at a larger world one
+    built from its gathered ZeRO-1 shards on rank 0, None elsewhere."""
+    if self.data.world_size == 1:
+      return state.ema
+    whole = self.data.gather_state_dict(state.ema, state.g_opt.axes)
+    if whole is None:
+      return None
+    ema = copy.deepcopy(state.generator).requires_grad_(False)
+    ema.load_state_dict(whole)
+    return ema
+
   # -- evaluation ------------------------------------------------------------
 
   def save_eval_images(self, step: int, output_dict) -> None:
@@ -513,6 +569,9 @@ class Trainer:
     returns its results.
     """
     log.info('Start Testing...')
+    if self.data.world_size != 1:
+      raise NotImplementedError('Trainer.test runs at world 1; run it '
+                                'without torchrun')
     self.global_batch_size = self.test_batch_size
     self._create_data(for_train=False)
     task_mgr = task_manager.TaskManagerWithCsvResults(

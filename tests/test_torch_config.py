@@ -19,6 +19,7 @@ from se3ds_torch import main as main_t
 from se3ds_torch.eval import inception as inception_t
 from se3ds_torch.models import folding as folding_t
 from se3ds_torch.models import generator as gen_t
+from se3ds_torch.parallel import mesh
 from se3ds_torch.train import trainer as trainer_t
 from se3ds_tpu import config as config_j
 from se3ds_tpu.train import trainer as trainer_j
@@ -72,14 +73,16 @@ def _attributes(trainer, skip):
 def test_gan_from_tiny_gin_equals_the_jax_trainer(tmp_path):
   """Every attribute of the JAX trainer but its mesh (mesh, num_replicas,
   shard_opt_state, the dataset lock) has the port's value; the port adds
-  only its device. The loss weights and schedule compare as dicts."""
+  only its device and its place on the data axis (`data`, world 1 here:
+  no process group). The loss weights and schedule compare as dicts."""
   path = os.path.join(REPO, 'configs/tiny_test.gin')
   for module in (config_t, config_j):
     module.parse_config_files_and_bindings([path])
   port = config_t.apply_config('GAN', model_dir=str(tmp_path / 't'),
                                device='cpu')
   jax_trainer = config_j.apply_config('GAN', model_dir=str(tmp_path / 'j'))
-  got = _attributes(port, {'device', '_ds_lock', 'hp', 'model_dir'})
+  assert port.data == mesh.DataParallel(1, 0)
+  got = _attributes(port, {'device', 'data', '_ds_lock', 'hp', 'model_dir'})
   want = _attributes(jax_trainer, {'mesh', 'num_replicas', 'shard_opt_state',
                                    '_ds_lock', 'hp', 'model_dir'})
   assert got == want

@@ -353,6 +353,71 @@ def test_checkpoint_round_trip_on_the_card(card, tmp_path):
 
 
 @pytest.mark.cuda
+def test_remat_equals_stored_activations_on_the_card(card, tmp_path,
+                                                     monkeypatch):
+  """One tiny step with remat and one storing activations, from one
+  state, cuDNN deterministic and TF32 off: metrics and the whole bundle
+  (G, D, the EMA, both Adam states) torch.equal."""
+  monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', False)
+  monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+  monkeypatch.setattr(torch.backends.cudnn, 'benchmark', False)
+  trainer = _tiny_trainer(tmp_path)
+  batch = trainer.device_batch(_train_batch(3))
+  metrics, bundles = [], []
+  for remat in (False, True):
+    state = trainer.create_state()
+    metrics.append(state_lib.train_step(state, batch,
+                                        trainer.hp._replace(remat=remat)))
+    bundles.append(checkpoints.state_bundle(state))
+  for key, value in metrics[0].items():
+    assert torch.equal(metrics[1][key], value), key
+  assert checkpoints.bundles_equal(*bundles)
+
+
+def _float64_state(trainer):
+  generator, discriminator = (m.to(trainer.device)
+                              for m in trainer._build_models())
+  rng = torch.Generator(device=trainer.device).manual_seed(trainer.seed)
+  folding.init_random_(generator, rng)
+  folding.init_random_(discriminator, rng)
+  generator.double().dtype = torch.float64
+  return state_lib.create_train_state(
+      generator, discriminator.double(), trainer.g_lr, trainer.d_lr,
+      trainer.beta1, trainer.beta2, trainer.data)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_group_step(card, tmp_path, monkeypatch):
+  """A float64 step through a world-1 NCCL group (`file://` rendezvous:
+  the synced BatchNorm, the gradient all_reduce) against the step
+  without a group; tolerances of tests/test_torch_distributed.py."""
+  import torch.distributed as dist
+  monkeypatch.setattr(torch.backends.cudnn, 'deterministic', True)
+  batch = {k: v.double() for k, v in _tiny_trainer(tmp_path).device_batch(
+      _train_batch(4)).items()}
+  alone_trainer = _tiny_trainer(tmp_path / 'alone')
+  alone = _float64_state(alone_trainer)
+  want = state_lib.train_step(alone, batch, alone_trainer.hp)
+  dist.init_process_group('nccl', init_method=f'file://{tmp_path}/rv',
+                          world_size=1, rank=0)
+  try:
+    trainer = _tiny_trainer(tmp_path / 'group')
+    assert dist.get_backend() == 'nccl' and trainer.data.world_size == 1
+    state = _float64_state(trainer)
+    got = state_lib.train_step(state, batch, trainer.hp)
+  finally:
+    dist.destroy_process_group()
+  for key, value in want.items():
+    np.testing.assert_allclose(float(got[key]), float(value), rtol=1e-6,
+                               atol=1e-9, err_msg=key)
+  tolerances = {'params': 1e-8, 'stats': 1e-7, 'u': 1e-9, 'exp_avg': 1e-6,
+                'exp_avg_sq': 1e-6, 'adam_steps': 0.0}
+  for key, value in state_lib.state_differences(state, alone).items():
+    assert value <= tolerances.get(key.split('_', 1)[-1], float('inf')), (
+        key, value)
+
+
+@pytest.mark.cuda
 def test_cli_train_then_test_on_the_card(card, tmp_path):
   """`python -m se3ds_torch.main` TRAIN then TEST with configs/tiny_test.gin
   on fixture records, on the card by default (no --device): the eval's

@@ -55,7 +55,8 @@ def test_port_files_found():
           'se3ds_torch/examples/mp3d_trajectory_demo.py',
           'se3ds_torch/examples/re10k_video_demo.py',
           'se3ds_torch/examples/vln_augmentation_demo.py',
-          'chip_smoke.py'} <= names
+          'se3ds_torch/parallel/mesh.py', 'se3ds_torch/utils/flops.py',
+          'se3ds_torch/profile_training.py', 'chip_smoke.py'} <= names
 
 
 def test_kernel_build_flags():

@@ -30,7 +30,6 @@ Tolerances, with their reasons:
 
 import dataclasses
 import os
-import types
 
 import numpy as np
 import pytest
@@ -44,6 +43,7 @@ from se3ds_torch.models import model_config as config_t
 from se3ds_torch.models import discriminator as discriminator_t
 from se3ds_torch.ops import geometry as geometry_t
 from se3ds_torch.train import checkpoints as checkpoints_t
+from se3ds_torch.train import state as state_t
 from se3ds_tpu.inference import perturbation as perturbation_j
 from se3ds_tpu.models import inference as inference_j
 from se3ds_tpu.models import model_config as config_j
@@ -348,14 +348,15 @@ def _trainable_generator(seed):
 
 
 def _train_state(seed):
-  """The parts of a TrainState a checkpoint bundle holds."""
-  generator, ema = _trainable_generator(seed), _trainable_generator(seed + 1)
+  """A TrainState at step 7 whose EMA generator differs from its
+  generator."""
   disc = discriminator_t.SNMultiScaleDiscriminator(dis_dims=2, n_layers=3)
   folding.init_random_(disc, torch.Generator().manual_seed(seed + 2))
-  return types.SimpleNamespace(
-      step=7, generator=generator, discriminator=disc, ema=ema,
-      g_opt=torch.optim.Adam(generator.parameters()),
-      d_opt=torch.optim.Adam(disc.parameters()))
+  state = state_t.create_train_state(_trainable_generator(seed), disc, 1e-3,
+                                     1e-3, 0.9, 0.999)
+  state.ema.load_state_dict(_trainable_generator(seed + 1).state_dict())
+  state.step = 7
+  return state
 
 
 def test_ema_generator_checkpoints_round_trip_and_serve(tmp_path):
