@@ -1,5 +1,6 @@
-"""Drives the PyTorch/CUDA port of SE3DS (serving and its API, FID eval
-and GAN training, remat and the data-parallel path) on one NVIDIA card.
+"""Drives the PyTorch/CUDA port of SE3DS (serving and its API, every
+splat mode and the mesh, FID eval and GAN training, remat and the
+data-parallel paths) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -95,6 +96,22 @@ Phases, in order; any failure raises and the process exits non-zero:
      (`file://` rendezvous: the synced BatchNorm, the gradient all_reduce,
      the checkpoint consolidation) against the plain step, float64,
      within stated tolerances.
+  11. Modes and mesh, on phase 4's config: (a) 'fast_exact', 'sorted',
+     'sorted_packed' and 'dual_sorted' through SE3DSModel, 3 feedback
+     steps each: every splat stage torch.equal to the same function on
+     the CPU on the card's view coordinates, and the byte-exact modes to
+     the exact kernel's guidance; the stage's device ms per served frame
+     for every mode beside 'fast' and 'scatter'; (b) a world-1 NCCL group
+     and `create_mesh(1, 1)`: SE3DSModel(mesh=...) with 'fast',
+     'fast_exact', 'scatter' and 'pallas' (run as 'fast'), a 3-step
+     predict_trajectory and predict_poses at K = 8, every output
+     torch.equal to the meshless model (cuDNN deterministic), ms per step
+     with and without the mesh; the split exact passes against the
+     cooperative launch (words torch.equal) with their device ms; (c)
+     'fast' with 5 channels against the exact kernel; (d) Trainer.test
+     through `torchrun --standalone --nproc_per_node 1 -m se3ds_torch.main
+     --mode TEST` on phase 8's checkpoint (run between phases 9 and 10,
+     while it exists), its scores against phase 8's TEST scores.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1200,6 +1217,26 @@ def cli_decode_timings(data, power):
       f'one-hot mask {features["one_hot_mask"].nbytes / 2**20:.1f} MiB')
 
 
+def cli_argv(data, model_dir):
+  """Phase 8's flags of `python -m se3ds_torch.main` but --mode."""
+  bindings = [
+      f"R2RImageDataset.data_dir = '{data}/'",
+      f"R2RVideoDataset.data_dir = '{data}/'",
+      f'R2RVideoDataset.preprocessed_image_height = {CLI_VIDEO_HEIGHT}',
+      'GAN.num_epochs = 1',
+      # 4 steps of 2 chunks of 16 make the epoch.
+      'R2RImageDataset.num_examples_override = '
+      f"{{'train': {CLI_STEPS * 2 * TRAIN_CHUNK}, 'val': 8}}",
+      f'GAN.train_batch_size = {TRAIN_CHUNK}', 'GAN.num_batched_steps = 1',
+      'GAN.log_every_steps = 1', f'GAN.save_every_steps = {CLI_STEPS}',
+      f'GAN.eval_every_steps = {CLI_STEPS}',
+      'GAN.test_batch_size = 8', 'GAN.eval_size = 8', 'GAN.eval_avg_num = 1']
+  argv = ['--model_dir', model_dir, '--gin_config', LOWRES_GIN]
+  for binding in bindings:
+    argv += ['--gin_bindings', binding]
+  return argv
+
+
 def phase_cli(splat_cuda, power):
   log('== phase 8: the CLI on the lowres recipe, TRAIN then TEST ==')
   import concurrent.futures
@@ -1240,21 +1277,7 @@ def phase_cli(splat_cuda, power):
       'processes')
   cli_decode_timings(data, power)
 
-  bindings = [
-      f"R2RImageDataset.data_dir = '{data}/'",
-      f"R2RVideoDataset.data_dir = '{data}/'",
-      f'R2RVideoDataset.preprocessed_image_height = {CLI_VIDEO_HEIGHT}',
-      'GAN.num_epochs = 1',
-      # 4 steps of 2 chunks of 16 make the epoch.
-      'R2RImageDataset.num_examples_override = '
-      f"{{'train': {CLI_STEPS * 2 * TRAIN_CHUNK}, 'val': 8}}",
-      f'GAN.train_batch_size = {TRAIN_CHUNK}', 'GAN.num_batched_steps = 1',
-      'GAN.log_every_steps = 1', f'GAN.save_every_steps = {CLI_STEPS}',
-      f'GAN.eval_every_steps = {CLI_STEPS}',
-      'GAN.test_batch_size = 8', 'GAN.eval_size = 8', 'GAN.eval_avg_num = 1']
-  argv = ['--model_dir', model_dir, '--gin_config', LOWRES_GIN]
-  for binding in bindings:
-    argv += ['--gin_bindings', binding]
+  argv = cli_argv(data, model_dir)
 
   # TRAIN through the real CLI, in its own process.
   train_log = os.path.join(root, 'train.log')
@@ -1962,6 +1985,351 @@ def phase_remat_and_group():
     shutil.rmtree(root)
 
 
+# -- phase 11: every splat mode, the mesh, Trainer.test under torchrun ------
+
+MODES_11A = ('fast_exact', 'sorted', 'sorted_packed', 'dual_sorted')
+MESH_MODES = ('fast', 'fast_exact', 'scatter', 'pallas')
+MODE_STEPS = 3
+MESH_TRAJECTORY = np.array([[0.25, 0.1, 0.0], [0.5, 0.1, 0.0],
+                            [0.75, 0.15, 0.0]], np.float32)
+# Trainer.test's scores under torchrun against phase 8's: the CPU test's
+# tolerances (tests/test_torch_mesh_serving.py).
+TEST_FID_RTOL, TEST_SCORE_RTOL = 1e-4, 1e-5
+
+
+def cpu_guidance(mode, memory, position, depth_scale=DEPTH_SCALE):
+  """`memory_project`'s four outputs for `mode`, computed on the CPU from
+  the view coordinates that the card computes on this memory: the card's
+  `equirect_view_coords(xyz - offset)`, copied to the host, through the
+  mode's function (the exact splat's plain version for 'sorted')."""
+  from se3ds_torch import constants
+  from se3ds_torch.models import inference
+  from se3ds_torch.ops import geometry
+  from se3ds_torch.ops import splat
+  offset = inference._transform_position(position.to(torch.float32))
+  view = lambda xyz: geometry.equirect_view_coords(xyz - offset[..., None])
+  voids = (float(constants.INVALID_SEM_VALUE),
+           float(constants.INVALID_RGB_VALUE))
+  if mode == 'dual_sorted':
+    depth, sem, rgb = splat.project_dual_sorted_packed(
+        view(memory.coords).cpu(), memory.feats.cpu(),
+        view(memory.rgb_coords).cpu(), memory.rgb.cpu(), H, W, depth_scale,
+        *voids)
+  else:
+    fn = {'sorted': splat.project_to_feat_plain,
+          'fast_exact': splat.project_to_feat_fast_exact,
+          'sorted_packed': splat.project_to_feat_sorted_packed}[mode]
+    _, sem = fn(view(memory.coords).cpu(), memory.feats.cpu(), H, W,
+                depth_scale, voids[0])
+    depth, rgb = fn(view(memory.rgb_coords).cpu(), memory.rgb.cpu(), H, W,
+                    depth_scale, voids[1])
+  return sem, depth, rgb, inference._proj_mask(depth, rgb)
+
+
+def phase_modes(inference, model_config, splat_cuda, power):
+  """11a: 'fast_exact', 'sorted', 'sorted_packed' and 'dual_sorted'
+  through SE3DSModel on phase 4's config, 3 feedback steps each (one
+  model, its splat mode switched between runs); every splat stage held
+  against the same function on the CPU, and the byte-exact modes
+  against the exact kernel's guidance; then the stage's device ms per
+  served frame for every mode on one memory."""
+  log('== phase 11a: the splat modes through SE3DSModel at full width '
+      '(1024x512, gen_dims 128, ResNet-101, bf16) ==')
+  model = inference.SE3DSModel(
+      serving_config(model_config), device='cuda',
+      generator=torch.Generator(device='cuda').manual_seed(0))
+  pano = synthetic_pano(H, 0)
+  real = inference.memory_project
+  seen = {'calls': 0, 'max_err': 0.0, 'check_s': 0.0}
+
+  def checked(memory, position, height, width, depth_scale,
+              splat_mode='fast', **kwargs):
+    out = real(memory, position, height, width, depth_scale,
+               splat_mode=splat_mode, **kwargs)
+    sync()
+    t0 = time.perf_counter()
+    counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+    want = cpu_guidance(splat_mode, memory, position, depth_scale)
+    seen['max_err'] = max(seen['max_err'], equal_or_raise(
+        f'{splat_mode} guidance, card vs CPU', [o.cpu() for o in out], want))
+    if splat_mode != 'fast_exact':  # byte features: the exact splat's
+      equal_or_raise(f'{splat_mode} guidance vs the exact kernel', out,
+                     real(memory, position, height, width, depth_scale,
+                          splat_mode='scatter', **kwargs))
+    splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+    seen['calls'] += 1
+    seen['check_s'] += time.perf_counter() - t0
+    return out
+
+  launches = {'fast': 0, 'exact': 0}
+  inference.memory_project = checked
+  try:
+    for mode in MODES_11A:
+      model.config = dataclasses.replace(model.config, splat_mode=mode)
+      model.reset_memory()
+      model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
+      step_ms = []
+      splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+      for i in range(MODE_STEPS):
+        sync()
+        before, t0 = seen['check_s'], time.perf_counter()
+        out = model(np.array([[0.25 * (i + 1), 0.1, 0.0]], np.float32),
+                    add_preds_to_memory=True)
+        sync()
+        step_ms.append((time.perf_counter() - t0 - seen['check_s']
+                        + before) * 1e3)
+      fast, exact = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+      want_exact = 2 * MODE_STEPS if mode == 'sorted' else 0
+      if fast or exact != want_exact:
+        raise AssertionError(f'{mode}: {fast} fast and {exact} exact '
+                             f'launches (expected 0 and {want_exact})')
+      launches['exact'] += exact
+      if not torch.isfinite(out.pred_depth).all():
+        raise AssertionError(f'{mode}: non-finite pred_depth')
+      log(f'  {mode}: {MODE_STEPS} steps, guidance torch.equal to the CPU '
+          f'run on the same view coordinates'
+          + ('' if mode == 'fast_exact' else ' and to the exact kernel')
+          + f'; ms per step (checks excluded) '
+          + ', '.join(f'{t:.2f}' for t in step_ms)
+          + f'; exact launches {exact} ({power})')
+  finally:
+    inference.memory_project = real
+  if seen['calls'] != len(MODES_11A) * MODE_STEPS:
+    raise AssertionError(f'{seen["calls"]} splat stages checked')
+
+  # The stage per served frame, every mode on the last run's memory.
+  memory = model._live_memory(model.get_memory_state(copy=False),
+                              model._frames_written,
+                              model._sem_frames_live())
+  position = torch.tensor([[0.5, 0.0, 0.0]], device='cuda')
+  counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+  stage_ms = {mode: device_ms(lambda mode=mode: real(
+      memory, position, H, W, DEPTH_SCALE, splat_mode=mode))
+              for mode in ('fast', 'scatter') + MODES_11A}
+  splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+  log(f'  splat stage per served frame ({memory.coords.shape[-1]} semantic + '
+      f'{memory.rgb_coords.shape[-1]} RGB points), device ms: ' + ', '.join(
+          f'{k} {v:.4f}' for k, v in stage_ms.items()) + f' ({power})')
+  del model
+  torch.cuda.empty_cache()
+  return launches, seen['max_err'], stage_ms
+
+
+def phase_mesh(inference, model_config, splat_cuda, geometry, power):
+  """11b: SE3DSModel(mesh=create_mesh(1, 1)) on a world-1 NCCL group
+  against the meshless model on the same weights, for 'fast',
+  'fast_exact', 'scatter' and 'pallas' (which becomes 'fast'): a 3-step
+  predict_trajectory and predict_poses at K = 8, every output torch.equal
+  (cuDNN deterministic); the split exact passes against the cooperative
+  launch; 11c: 'fast' with 5 channels against the exact kernel."""
+  log('== phase 11b: SE3DSModel(mesh=create_mesh(1, 1)) on a world-1 NCCL '
+      'group against the meshless model, phase 4\'s config ==')
+  import tempfile
+  import torch.distributed as dist
+  from se3ds_torch.parallel import mesh as mesh_lib
+  from se3ds_torch.parallel import splat_shard
+  from se3ds_torch.ops import splat
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix='mesh_', dir=BUILD_DIR)
+  torch.backends.cudnn.deterministic = True
+  pano = synthetic_pano(H, 0)
+  poses = np.random.RandomState(5).uniform(-0.8, 0.8, (POSES_K, 3)).astype(
+      np.float32) * np.array([1, 1, 0.1], np.float32)
+  launches = {'fast': 0, 'exact': 0}
+  max_err = 0.0
+  mesh_stage_ms = {}
+  dist.init_process_group('nccl', init_method=f'file://{root}/rendezvous',
+                          world_size=1, rank=0)
+  try:
+    mesh = mesh_lib.create_mesh(1, 1)
+    position = torch.tensor([[0.5, 0.0, 0.0]], device='cuda')
+    for mode in MESH_MODES:
+      runs, stage_ms = {}, {}
+      for name, kwargs in (('alone', {}), ('mesh', {'mesh': mesh})):
+        model = inference.SE3DSModel(
+            serving_config(model_config, splat_mode=mode), device='cuda',
+            generator=torch.Generator(device='cuda').manual_seed(0),
+            **kwargs)
+        model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
+        # Warm-up at batch 8 and 1 (cuDNN's set-up); no memory write.
+        model.predict_poses(poses)
+        model(MESH_TRAJECTORY[:1])
+        splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+        sync()
+        t0 = time.perf_counter()
+        traj = model.predict_trajectory(MESH_TRAJECTORY)
+        sync()
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(MESH_TRAJECTORY)
+        out = model.predict_poses(poses)
+        sync()
+        runs[name] = (traj, out, step_ms, model.config.splat_mode,
+                      splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES)
+        launches['fast'] += splat_cuda.LAUNCHES
+        launches['exact'] += splat_cuda.EXACT_LAUNCHES
+        live = model._live_memory(model.get_memory_state(copy=False),
+                                  model._frames_written,
+                                  model._sem_frames_live())
+        # The splat stage of a served frame on this model's memory, with
+        # or without the mesh: what the mesh costs on the card.
+        counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+        stage_ms[name] = device_ms(lambda: inference.memory_project(
+            live, position, H, W, DEPTH_SCALE,
+            splat_mode=model.config.splat_mode,
+            mesh=kwargs.get('mesh')))
+        splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+        if mode == 'scatter' and name == 'mesh':
+          memory = live
+        del model
+      (traj, out, alone_ms, alone_mode, alone_fast, alone_exact) = (
+          runs['alone'])
+      (mtraj, mout, mesh_ms, mesh_mode, mesh_fast, mesh_exact) = runs['mesh']
+      resolved = {'pallas': 'fast'}.get(mode, mode)
+      splats = 2 * (len(MESH_TRAJECTORY) + 1)  # 2 clouds per forward
+      want = {'fast': (splats, 0, splats, 0), 'fast_exact': (0, 0, 0, 0),
+              'scatter': (0, splats, 0, 2 * splats)}[resolved]
+      got = (alone_fast, alone_exact, mesh_fast, mesh_exact)
+      if mesh_mode != resolved or got != want:
+        raise AssertionError(f'{mode}: mesh mode {mesh_mode}, launches '
+                             f'(fast, exact; alone then mesh) {got}, '
+                             f'expected {want}')
+      for a, b, what in ((traj, mtraj, 'trajectory'), (out, mout, 'poses')):
+        for field in a._fields:
+          if getattr(a, field) is not None:
+            max_err = max(max_err, equal_or_raise(
+                f'{mode} {what} {field}, mesh vs none', [getattr(b, field)],
+                [getattr(a, field)]))
+      log(f'  {mode} (the mesh model runs {mesh_mode!r}): trajectory of '
+          f'{len(MESH_TRAJECTORY)} and predict_poses K={POSES_K} torch.equal'
+          f' to the meshless model; ms per step (host clock) {alone_ms:.2f}'
+          f' without the mesh, {mesh_ms:.2f} with it; splat stage per '
+          f'served frame (device) {stage_ms["alone"]:.4f} ms without, '
+          f'{stage_ms["mesh"]:.4f} ms with; launches (fast, exact) '
+          f'{(alone_fast, alone_exact)} without, {(mesh_fast, mesh_exact)} '
+          f'with ({power})')
+      mesh_stage_ms[mode] = (
+          stage_ms['alone'], stage_ms['mesh'])
+
+    # The split exact passes against the one cooperative launch, on the
+    # mesh 'scatter' model's memory; these launches are comparisons.
+    counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+    group = mesh.get_group('data')
+    offset = torch.tensor([[0.5, 0.0, 0.0, 0.0]], device='cuda')
+    from se3ds_torch import constants
+    clouds = (('semantic', memory.coords, memory.feats,
+               float(constants.INVALID_SEM_VALUE), False),
+              ('rgb', memory.rgb_coords, memory.rgb,
+               float(constants.INVALID_RGB_VALUE), True))
+    split_ms = {'pass 1': 0.0, 'pass 2': 0.0, 'cooperative stage': 0.0,
+                'split stage': 0.0, 'split stage again': 0.0,
+                'cooperative stage again': 0.0}
+    for name, xyz, feats, void, need_depth in clouds:
+      args = (xyz, feats, H, W, DEPTH_SCALE, void)
+      coop = splat_cuda.exact_words(*args, offset=offset)
+      words = splat_cuda.exact_pass(*args, 1, offset=offset)
+      words[..., 0] = splat_cuda.all_reduce_unsigned_min(
+          words[..., 0].contiguous(), group)
+      words = splat_cuda.exact_pass(*args, 2, words=words, offset=offset)
+      equal_or_raise(f'{name} split exact passes vs the cooperative launch',
+                     [words], [coop])
+      sharded = lambda: splat_shard.project_memory_equirect_sharded(
+          feats, xyz, offset, H, W, void, DEPTH_SCALE, group=group,
+          splat_mode='scatter', need_depth=need_depth)
+      whole = lambda: geometry.project_memory_equirect(
+          feats, xyz, offset, H, W, void, DEPTH_SCALE, 'scatter',
+          need_depth=need_depth)
+      max_err = max(max_err, equal_or_raise(
+          f'{name} sharded exact stage vs unsharded', sharded(), whole()))
+      split_ms['pass 1'] += device_ms(
+          lambda: splat_cuda.exact_pass(*args, 1, offset=offset))
+      split_ms['pass 2'] += device_ms(
+          lambda: splat_cuda.exact_pass(*args, 2, words=words.clone(),
+                                        offset=offset))
+      # In turns: cooperative, split, split, cooperative.
+      for key, fn in (('cooperative stage', whole), ('split stage', sharded),
+                      ('split stage again', sharded),
+                      ('cooperative stage again', whole)):
+        split_ms[key] += device_ms(fn)
+    log('  split exact passes torch.equal to the cooperative launch (words) '
+        'and the sharded exact stage to the unsharded one, per served frame '
+        '(semantic + RGB), device ms: ' + ', '.join(
+            f'{k} {v:.4f}' for k, v in split_ms.items())
+        + ' (pass 2 includes a copy of the words; the split stage its two '
+        f'world-1 all_reduces) ({power})')
+    split_ms['mesh stage'] = mesh_stage_ms
+
+    log('== phase 11c: \'fast\' with 5 feature channels on the card is the '
+        'exact kernel ==')
+    xyz, feats = memory.rgb_coords, memory.rgb
+    feats5 = torch.cat([feats, feats[..., :2]], dim=-1)
+    void = float(constants.INVALID_RGB_VALUE)
+    fast5 = geometry.project_memory_equirect(feats5, xyz, offset, H, W, void,
+                                             DEPTH_SCALE, 'fast')
+    exact5 = splat.splat_images(True, xyz, feats5, H, W, DEPTH_SCALE, void,
+                                offset=offset)
+    max_err = max(max_err, equal_or_raise("'fast' C=5 vs the exact kernel",
+                                          fast5, exact5))
+    log(f'  {xyz.shape[-1]} points, C=5: torch.equal')
+    splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+  finally:
+    torch.backends.cudnn.deterministic = False
+    dist.destroy_process_group()
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+  return launches, max_err, split_ms
+
+
+def phase_test_torchrun(power, model_dir, cli_root):
+  """11d: `Trainer.test` through `torchrun --standalone --nproc_per_node
+  1 -m se3ds_torch.main --mode TEST` on phase 8's records and step-4
+  checkpoint (a fresh model_dir linking it), its scores against phase
+  8's world-1 TEST scores."""
+  log('== phase 11d: Trainer.test under torchrun --nproc_per_node 1 on '
+      'phase 8\'s checkpoint, against phase 8\'s scores ==')
+  import glob
+  test_dir = os.path.join(cli_root, 'test_torchrun')
+  os.makedirs(test_dir)
+  os.symlink(os.path.join(model_dir, str(CLI_STEPS)),
+             os.path.join(test_dir, str(CLI_STEPS)))
+  for path in glob.glob(os.path.join(model_dir, '*')):
+    if os.path.isfile(path) and not os.path.basename(path).startswith(
+        ('events', 'scores')):
+      shutil.copy(path, test_dir)  # TRAIN_DONE, the operative configs
+  argv = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+          '--nproc_per_node', '1', '-m', 'se3ds_torch.main', '--mode', 'TEST',
+          *cli_argv(os.path.join(cli_root, 'data'), test_dir)]
+  test_log = os.path.join(cli_root, 'torchrun_test.log')
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  with open(test_log, 'w') as out:
+    proc = subprocess.run(argv, cwd=REPO, stdout=out,
+                          stderr=subprocess.STDOUT, timeout=600, check=False)
+  test_s = time.perf_counter() - t0
+  with open(test_log) as f:
+    lines = f.readlines()
+  if proc.returncode:
+    log(''.join(lines[-40:]))
+    raise AssertionError(f'torchrun ... --mode TEST exited {proc.returncode}')
+  world = [line.strip() for line in lines if 'TEST on' in line]
+  if not world or not world[-1].endswith('rank 0 of 1'):
+    raise AssertionError(f'not a torchrun rank: {world}')
+  scores = lambda d: {tag: v for step, tag, v in event_scalars(d)
+                      if step == CLI_STEPS and 'eval_image' in tag}
+  want, got = scores(model_dir), scores(test_dir)
+  if not want or got.keys() != want.keys():
+    raise AssertionError(f'scores {sorted(got)} against {sorted(want)}')
+  for tag, value in want.items():
+    rtol = TEST_FID_RTOL if 'fid' in tag else TEST_SCORE_RTOL
+    if not abs(got[tag] - value) <= rtol * abs(value):
+      raise AssertionError(f'{tag}: {got[tag]} under torchrun, {value} in '
+                           f'phase 8 (rtol {rtol})')
+  rel = max(abs(got[t] - v) / max(abs(v), 1e-12) for t, v in want.items())
+  log(f'  {world[-1]}; {test_s:.2f} s wall; {len(want)} scores equal phase '
+      f'8\'s within FID rtol {TEST_FID_RTOL}, others {TEST_SCORE_RTOL} '
+      f'(largest relative difference {rel:.3g}): ' + ', '.join(
+          f'{t.split("/")[-1]} {got[t]:.6g}' for t in sorted(got))
+      + f' ({power})')
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -2017,12 +2385,18 @@ def main():
     api_launches, api_err = run('9', phase_serving_api, inference,
                                 model_config, splat_cuda, geometry, power,
                                 cli_model_dir)
+    run('11d', phase_test_torchrun, power, cli_model_dir, cli_root)
     shutil.rmtree(cli_model_dir)  # phase 10f reads only the records
     run('10', phase_highres, power)
     run('10de', phase_remat_and_group)
     run('10f', phase_torchrun, power, cli_root)
   finally:
     shutil.rmtree(cli_root)
+  mode_launches, mode_err, mode_ms = run('11a', phase_modes, inference,
+                                         model_config, splat_cuda, power)
+  mesh_launches, mesh_err, split_ms = run('11bc', phase_mesh, inference,
+                                          model_config, splat_cuda, geometry,
+                                          power)
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']
@@ -2034,10 +2408,21 @@ def main():
       f'launch {exact["point"]:.4f} ms + resolve {exact["resolve"]:.4f} ms,'
       f' whole stage {exact["stage"]:.4f} ms, plain {exact["plain"]:.4f} ms,'
       f' bound {exact["bound"]:.4f} ms')
+  fast_11 = mode_launches['fast'] + mesh_launches['fast']
+  exact_11 = mode_launches['exact'] + mesh_launches['exact']
   log(f'splat_fast launches: {launches} in phase 4, {api_launches} in '
-      'phase 9 (the kernels line counts both)')
+      f'phase 9, {fast_11} in phase 11 (the kernels line counts all three)')
   log(f'splat_exact launches: {exact_launches} in phase 6\'s rollout, '
-      f'{cli_launches} in phase 8\'s TEST (the kernels line counts phase 8)')
+      f'{cli_launches} in phase 8\'s TEST, {exact_11} in phase 11 (its split'
+      ' passes one each; the kernels line counts phases 8 and 11)')
+  log('splat stage per served frame by mode (phase 11a, device ms): '
+      + ', '.join(f'{k} {v:.4f}' for k, v in mode_ms.items()))
+  mesh_stage_ms = split_ms.pop('mesh stage')
+  log('split exact passes per served frame (phase 11b, device ms): '
+      + ', '.join(f'{k} {v:.4f}' for k, v in split_ms.items()))
+  log('splat stage per served frame without / with the world-1 mesh '
+      '(phase 11b, device ms): ' + ', '.join(
+          f'{k} {a:.4f} / {b:.4f}' for k, (a, b) in mesh_stage_ms.items()))
   log(f'chip_smoke took {time.perf_counter() - START:.1f} s; by phase: '
       + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()))
   log(power)
@@ -2045,14 +2430,15 @@ def main():
   log(json.dumps({'kernels': [{
       'name': 'splat_fast', 'route': 'cuda',
       'source': 'se3ds_torch/csrc/splat.cu', 'replaces': SPLAT_REPLACES,
-      'launches': launches + api_launches,
-      'max_abs_err': max(max_err, main_err, api_err),
+      'launches': launches + api_launches + fast_11,
+      'max_abs_err': max(max_err, main_err, api_err, mesh_err),
       'ms': fast_ms, 'plain_ms': fast['plain'], 'bound_ms': fast['bound'],
       'bound_by': 'bytes', 'library_ms': None}, {
           'name': 'splat_exact', 'route': 'cuda',
           'source': 'se3ds_torch/csrc/splat_exact.cu',
-          'replaces': EXACT_REPLACES, 'launches': cli_launches,
-          'max_abs_err': max(exact_err, rollout_err, cli_err),
+          'replaces': EXACT_REPLACES, 'launches': cli_launches + exact_11,
+          'max_abs_err': max(exact_err, rollout_err, cli_err, mode_err,
+                             mesh_err),
           'ms': exact_ms,
           'plain_ms': exact['plain'], 'bound_ms': exact['bound'],
           'bound_by': 'bytes', 'library_ms': None}]}))

@@ -44,6 +44,13 @@
 // checking a pixel's word before each atomic. Caching each point's pixel
 // in pass 1 instead of recomputing it gained nothing measurable.
 //
+// The split passes. A splat whose points are spread over several ranks
+// (se3ds_torch/parallel/splat_shard.py) must test each point against the
+// GLOBAL minimum, so the minima are combined between the passes: there,
+// each pass is an ordinary launch of its own (`se3ds_splat_exact_pass`,
+// the same kernel instantiated for one pass, with no grid sync), and the
+// caller combines the words after each.
+//
 // What bounds it: the function reads 12 + 4*C bytes per point and writes
 // 4 + 4*C per pixel; the atomics resolve in L2 (one per valid point, then
 // C per point in the window).
@@ -77,7 +84,9 @@ struct ExactArgs {
   uint32_t* words;  // (B, H*W, 1 + C)
 };
 
-template <bool kEquirect>
+// kPasses: 3 runs both passes with a grid sync between them (a
+// cooperative launch only); 1 or 2 runs that pass alone.
+template <bool kEquirect, int kPasses>
 __global__ void __launch_bounds__(256)
     splat_exact_kernel(const ExactArgs args) {
   const se3ds::Clouds& clouds = args.clouds;
@@ -87,7 +96,7 @@ __global__ void __launch_bounds__(256)
   const int64_t per_element = (int64_t)clouds.height * clouds.width * stride;
   const int64_t threads = (int64_t)gridDim.x * blockDim.x;
   const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int b = 0; b < args.batch; ++b) {
+  for (int b = 0; b < ((kPasses & 1) ? args.batch : 0); ++b) {
     const se3ds::Cloud<kEquirect> cloud(clouds, b);
     uint32_t* w = args.words + b * per_element;
     for (int64_t i = first; i < num_points; i += threads) {
@@ -99,10 +108,10 @@ __global__ void __launch_bounds__(256)
       atomicMin(w + flat * stride, __float_as_uint(z));
     }
   }
-  cg::this_grid().sync();
+  if constexpr (kPasses == 3) cg::this_grid().sync();
   // Reverse order: the last element first, point M-1-i for the i of
   // pass 1.
-  for (int b = args.batch - 1; b >= 0; --b) {
+  for (int b = (kPasses & 2) ? args.batch - 1 : -1; b >= 0; --b) {
     const se3ds::Cloud<kEquirect> cloud(clouds, b);
     uint32_t* w = args.words + b * per_element;
     for (int64_t i = first; i < num_points; i += threads) {
@@ -141,9 +150,9 @@ __global__ void resolve_exact_kernel(const uint32_t* __restrict__ words,
   }
 }
 
-template <bool kEquirect>
+template <bool kEquirect, int kPasses>
 int launch_passes(const ExactArgs& args, cudaStream_t stream) {
-  const void* kernel = (const void*)splat_exact_kernel<kEquirect>;
+  const void* kernel = (const void*)splat_exact_kernel<kEquirect, kPasses>;
   int device, sms, per_sm;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -159,9 +168,34 @@ int launch_passes(const ExactArgs& args, cudaStream_t stream) {
   const int64_t needed = (args.clouds.num_points + 255) / 256;
   if (needed < blocks) blocks = needed;
   if (blocks < 1) blocks = 1;
+  if constexpr (kPasses != 3) {
+    splat_exact_kernel<kEquirect, kPasses>
+        <<<(unsigned)blocks, 256, 0, stream>>>(args);
+    return (int)cudaGetLastError();
+  }
   void* params[] = {const_cast<ExactArgs*>(&args)};
   return (int)cudaLaunchCooperativeKernel(kernel, dim3((unsigned)blocks),
                                           dim3(256), params, 0, stream);
+}
+
+ExactArgs exact_args(const float* xyz, int64_t row_stride,
+                     int64_t batch_stride, const float* offset,
+                     const float* feats, int64_t feats_bstride, int batch,
+                     int64_t num_points, int channels, int height, int width,
+                     float depth_scale, float void_value, float tolerance,
+                     uint32_t* words) {
+  return ExactArgs{
+      se3ds::Clouds{xyz, row_stride, batch_stride, offset, feats,
+                    feats_bstride, num_points, channels, height, width,
+                    void_value},
+      batch, depth_scale, tolerance, words};
+}
+
+int memset_words(uint32_t* words, int batch, int height, int width,
+                 int channels, cudaStream_t stream) {
+  const size_t bytes =
+      (size_t)batch * height * width * (1 + channels) * sizeof(uint32_t);
+  return (int)cudaMemsetAsync(words, 0xFF, bytes, stream);
 }
 
 }  // namespace
@@ -180,17 +214,43 @@ extern "C" int se3ds_splat_exact(const float* xyz, int64_t row_stride,
                                  int height, int width, float depth_scale,
                                  float void_value, float tolerance,
                                  uint32_t* words, cudaStream_t stream) {
-  const size_t bytes =
-      (size_t)batch * height * width * (1 + channels) * sizeof(uint32_t);
-  cudaError_t err = cudaMemsetAsync(words, 0xFF, bytes, stream);
-  if (err != cudaSuccess) return (int)err;
-  const ExactArgs args{
-      se3ds::Clouds{xyz, row_stride, batch_stride, offset, feats,
-                    feats_bstride, num_points, channels, height, width,
-                    void_value},
-      batch, depth_scale, tolerance, words};
-  return offset ? launch_passes<true>(args, stream)
-                : launch_passes<false>(args, stream);
+  const int err = memset_words(words, batch, height, width, channels, stream);
+  if (err != 0) return err;
+  const ExactArgs args =
+      exact_args(xyz, row_stride, batch_stride, offset, feats, feats_bstride,
+                 batch, num_points, channels, height, width, depth_scale,
+                 void_value, tolerance, words);
+  return offset ? launch_passes<true, 3>(args, stream)
+                : launch_passes<false, 3>(args, stream);
+}
+
+// One pass alone, an ordinary launch on `stream`: pass 1 (after the
+// memset of `words` to 0xFF) folds the depths into word 0; pass 2 reads
+// word 0 as the minimum (the caller may have combined it with other
+// ranks' since pass 1) and folds the window's features into words 1..C.
+// Arguments as se3ds_splat_exact's. Returns a CUDA error code as an int.
+extern "C" int se3ds_splat_exact_pass(
+    const float* xyz, int64_t row_stride, int64_t batch_stride,
+    const float* offset, const float* feats, int64_t feats_bstride,
+    int batch, int64_t num_points, int channels, int height, int width,
+    float depth_scale, float void_value, float tolerance, int pass,
+    uint32_t* words, cudaStream_t stream) {
+  if (pass != 1 && pass != 2) return (int)cudaErrorInvalidValue;
+  if (pass == 1) {
+    const int err =
+        memset_words(words, batch, height, width, channels, stream);
+    if (err != 0) return err;
+  }
+  const ExactArgs args =
+      exact_args(xyz, row_stride, batch_stride, offset, feats, feats_bstride,
+                 batch, num_points, channels, height, width, depth_scale,
+                 void_value, tolerance, words);
+  if (pass == 1) {
+    return offset ? launch_passes<true, 1>(args, stream)
+                  : launch_passes<false, 1>(args, stream);
+  }
+  return offset ? launch_passes<true, 2>(args, stream)
+                : launch_passes<false, 2>(args, stream);
 }
 
 // The resolve on `stream`: one thread per pixel of the B*H*W in `words`.

@@ -13,6 +13,12 @@ Everything runs on the card unless the caller passes `device='cpu'`;
 random augmentations draw from an explicit `torch.Generator`. Batches
 come from any iterator of numpy (or tensor) dicts, such as the port's
 `data.datasets.R2RVideoDataset` (what `Trainer.test` evaluates).
+
+`EvalMetric(data=...)` evaluates data-parallel: every rank reads every
+batch and rolls out its share of the rows, draws each batch's
+augmentations whole (so every rank's generator stays in step and each
+row gets its world-1 draw), and rank 0 gathers the pools, logits and
+RMSE in row order and computes the scores, which every rank returns.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from se3ds_torch import device as device_lib
 from se3ds_torch.eval import fid as fid_lib
 from se3ds_torch.eval import inception as inception_lib
 from se3ds_torch.ops import geometry
+from se3ds_torch.parallel import mesh as mesh_lib
 
 log = logging.getLogger('se3ds_torch')
 
@@ -53,11 +60,16 @@ def draw_augment(batch_size: int, width: int, rng: torch.Generator
 
 
 def _augment_crop_for_inception(images: torch.Tensor,
-                                rng: torch.Generator) -> torch.Tensor:
+                                rng: torch.Generator,
+                                rows: slice = slice(None),
+                                batch_size: Optional[int] = None
+                                ) -> torch.Tensor:
   """Random roll + flip, then pole crop (JAX
-  `metrics._augment_crop_for_inception`)."""
-  roll, flips = draw_augment(images.shape[0], images.shape[2], rng)
-  return augment_crop(images, roll, flips)
+  `metrics._augment_crop_for_inception`). `images` are `rows` of a batch
+  of `batch_size` (default: the whole batch), whose draws are made."""
+  batch_size = images.shape[0] if batch_size is None else batch_size
+  roll, flips = draw_augment(batch_size, images.shape[2], rng)
+  return augment_crop(images, roll, flips[rows])
 
 
 def _video(batch: Dict[str, Any], key: str,
@@ -202,12 +214,17 @@ class EvalMetric:
                inception_model: Optional[inception_lib.InceptionV3] = None,
                splat_mode: str = 'sorted',
                rng: Optional[torch.Generator] = None,
-               device=None):
+               device=None,
+               data: Optional[mesh_lib.DataParallel] = None):
     """Args as the JAX EvalMetric's, with the Inception module in place of
     its variables (default: `init_inception` from seed 42), a
     `torch.Generator` for the augmentations (default: seed 0 on
-    `device`), and `device` ('cuda' by default; raises without a card)."""
+    `device`), `device` ('cuda' by default; raises without a card) and
+    `data`, this rank's place among the ranks that evaluate together
+    (default: world 1; every rank constructs its EvalMetric alike and
+    makes the same calls)."""
     self.device = device_lib.resolve(device, 'EvalMetric')
+    self.data = data if data is not None else mesh_lib.DataParallel()
     self.ds_factory = ds_factory
     self.eval_num = eval_num
     self.batch_size = batch_size
@@ -239,12 +256,23 @@ class EvalMetric:
         log.info('Eval batch %d / %d', j, n_iter)
       yield batch
 
-  def _pool_of(self, images: torch.Tensor):
-    """Inception (pool, predictions) of augmented, pole-cropped images."""
-    return inception_lib.get_inception(
-        _augment_crop_for_inception(images, self._rng), self._inception)
+  def _pool_of(self, images: torch.Tensor, batch_size: int):
+    """Inception (pool, predictions) of this rank's rows of a batch of
+    `batch_size`, augmented and pole-cropped (None without rows; the
+    augmentations are drawn all the same)."""
+    images = _augment_crop_for_inception(
+        images, self._rng, self.data.share(batch_size), batch_size)
+    if not images.shape[0]:
+      return None, None
+    pool, preds = inception_lib.get_inception(images, self._inception)
+    return pool.cpu().numpy(), preds.cpu().numpy()
 
   def _trim(self, lists):
+    """Rank 0: each list's batches (gathered from every rank) joined and
+    cut to eval_num rows; None on the other ranks."""
+    lists = self.data.gather_rows(lists)
+    if lists is None:
+      return None
     return {k: np.concatenate(v, 0)[:self.eval_num] for k, v in lists.items()}
 
   def _get_real_pool_for_evaluation(self):
@@ -252,8 +280,9 @@ class EvalMetric:
     pools = {i: [] for i in range(1, self.eval_seq_len)}
     for batch in self._batches():
       images = _video(batch, 'original_image', self.device)
+      rows = self.data.share(images.shape[0])
       for i in range(1, self.eval_seq_len):
-        pools[i].append(self._pool_of(images[:, i])[0].cpu().numpy())
+        pools[i].append(self._pool_of(images[rows, i], images.shape[0])[0])
     return self._trim(pools)
 
   def _get_generated_pool_for_evaluation(self, generator: Callable):
@@ -262,19 +291,31 @@ class EvalMetric:
     logits = {i: [] for i in frames}
     rmse = {i: [] for i in frames}
     for batch in self._batches():
-      generated, batch_rmse, _ = rollout_generated(
-          generator, batch, self.eval_seq_len, self.depth_scale,
-          self.predict_depth, splat_mode=self.splat_mode, device=self.device)
+      size = int(np.shape(batch['image'])[0])
+      rows = self.data.share(size)
+      local = {k: batch[k][rows] for k in ('image', 'depth', 'position')}
+      if rows.stop > rows.start:
+        generated, batch_rmse, _ = rollout_generated(
+            generator, local, self.eval_seq_len, self.depth_scale,
+            self.predict_depth, splat_mode=self.splat_mode,
+            device=self.device)
+      else:  # no rows here; the augmentations are drawn all the same
+        empty = _video(local, 'image', self.device)[:, 0]
+        generated = {i: empty for i in frames}
+        batch_rmse = {i: None for i in frames}
       for i in frames:
-        pool, preds = self._pool_of(generated[i])
-        pools[i].append(pool.cpu().numpy())
-        logits[i].append(preds.cpu().numpy())
-        rmse[i].append(batch_rmse[i].cpu().numpy())
+        pool, preds = self._pool_of(generated[i], size)
+        pools[i].append(pool)
+        logits[i].append(preds)
+        rmse[i].append(None if batch_rmse[i] is None
+                       else batch_rmse[i].cpu().numpy())
     return self._trim(pools), self._trim(logits), self._trim(rmse)
 
   def calculate_fid_score(self, generator: Callable):
     """Returns (fid, fid_std, rmse, inception_score) dicts keyed by frame
-    index 1..T-1; `generator` maps the conditions dict to the 7-list."""
+    index 1..T-1; `generator` maps the conditions dict to the 7-list.
+    Every rank calls it with the same generator; rank 0 computes the
+    scores, every rank returns them."""
     fid_list = {i: [] for i in range(1, self.eval_seq_len)}
     rmse_list = {i: [] for i in range(1, self.eval_seq_len)}
     is_list = {i: [] for i in range(1, self.eval_seq_len)}
@@ -282,6 +323,8 @@ class EvalMetric:
     for _ in range(self.avg_num):
       generated_pool, logits, rmse_total = (
           self._get_generated_pool_for_evaluation(generator))
+      if not self.data.is_chief:
+        continue
       for i in range(1, self.eval_seq_len):
         fid_list[i].append(
             fid_lib.calculate_fid(generated_pool[i], self._pool[i]))
@@ -293,4 +336,4 @@ class EvalMetric:
     fid_std = {k: float(np.std(v)) for k, v in fid_list.items()}
     rmse = {k: float(np.mean(v)) for k, v in rmse_list.items()}
     inception_score = {k: float(np.mean(v)) for k, v in is_list.items()}
-    return fid, fid_std, rmse, inception_score
+    return self.data.broadcast((fid, fid_std, rmse, inception_score))

@@ -17,7 +17,8 @@ sets `WORLD_SIZE`, `RANK` and `LOCAL_RANK` (`parallel.mesh`):
         --gin_bindings "GAN.remat = True"
 
 `train_batch_size` stays the global batch; each rank steps on its share.
-Without torchrun the job runs alone (world 1). TEST runs at world 1.
+TEST under torchrun rolls out each rank's share of every eval batch and
+rank 0 writes the scores. Without torchrun the job runs alone (world 1).
 """
 
 from __future__ import annotations

@@ -7,15 +7,20 @@ invalid points keep their void feature value, which the splat skips.
 Unlike the JAX package, which returns new buffers, the port writes the
 memory buffers in place; `get_memory_state()` copies them by default.
 
-Everything of the JAX API is here (strict and ring memory, the fused
-trajectory, `predict_poses`, `.ply` export, restoring a checkpoint) but
-the device mesh (ROADMAP.md). `ckpt_path` names a checkpoint the port
-wrote (`train.checkpoints.restore_ema_generator`); the JAX package's
-Orbax checkpoints are restored there and passed in with `variables=`.
+Everything of the JAX API is here: strict and ring memory, the fused
+trajectory, `predict_poses`, `.ply` export, restoring a checkpoint, every
+splat mode, and the device mesh (`mesh=`, a `DeviceMesh` of
+`parallel.mesh.create_mesh`: the splat's points spread over its 'data'
+ranks, the generator's rows over its 'spatial' ranks). `ckpt_path` names
+a checkpoint the port wrote (`train.checkpoints.restore_ema_generator`);
+the JAX package's Orbax checkpoints are restored there and passed in with
+`variables=`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -26,7 +31,9 @@ from se3ds_torch import device as device_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import model_config
+from se3ds_torch.models import spatial
 from se3ds_torch.ops import geometry
+from se3ds_torch.parallel import splat_shard
 from se3ds_torch.train import checkpoints
 
 
@@ -182,34 +189,67 @@ def memory_add_pano(memory: MemoryState,
   return memory._replace(cursor=min(max(memory.cursor, cur + num_new), cap))
 
 
+def _proj_mask(proj_depth: torch.Tensor, proj_rgb: torch.Tensor
+               ) -> torch.Tensor:
+  return ((proj_depth > 0) & (proj_depth < 1)
+          & torch.all(proj_rgb != constants.INVALID_RGB_VALUE, dim=-1)
+          ).to(torch.float32)[..., None]
+
+
 def memory_project(memory: MemoryState, position: torch.Tensor, height: int,
                    width: int, depth_scale: float, splat_mode: str = 'fast',
-                   project_semantics: bool = True):
+                   project_semantics: bool = True, mesh=None,
+                   mesh_axis: str = 'data'):
   """Splats the memory at a target pose into guidance images.
 
   Returns (proj_semantic (N,H,W,1) f32, proj_depth (N,H,W), proj_rgb
   (N,H,W,3), proj_mask (N,H,W,1)). With `project_semantics=False` the
   semantic splat is skipped and proj_semantic is all zero.
+
+  With `mesh` (a `DeviceMesh` of `parallel.mesh.create_mesh`), each rank
+  of the `mesh_axis` group splats its share of the point axis of both
+  clouds and the buffers combine over the group
+  (`parallel.splat_shard`): every rank gets the whole images, equal to
+  the unsharded splat. splat_mode='dual_sorted' splats both clouds in
+  one sort (`geometry.project_dual_to_equirectangular`); it needs
+  project_semantics=True and has no sharded path.
   """
   relative_position = _transform_position(position.to(torch.float32))
+  if splat_mode == 'dual_sorted':
+    if mesh is not None or not project_semantics:
+      raise ValueError(
+          "splat_mode='dual_sorted' fuses the semantic+RGB pair, so it "
+          'needs project_semantics=True and has no sharded path.')
+    offset = relative_position[..., None]
+    proj_depth, proj_semantic, proj_rgb = (
+        geometry.project_dual_to_equirectangular(
+            memory.feats, memory.coords - offset, memory.rgb,
+            memory.rgb_coords - offset, height, width,
+            sem_void_class=constants.INVALID_SEM_VALUE,
+            rgb_void_class=constants.INVALID_RGB_VALUE,
+            depth_scale=depth_scale))
+    return proj_semantic, proj_depth, proj_rgb, _proj_mask(proj_depth,
+                                                           proj_rgb)
+  if mesh is not None:
+    project = functools.partial(
+        splat_shard.project_memory_equirect_sharded,
+        group=mesh.get_group(mesh_axis), splat_mode=splat_mode)
+  else:
+    project = functools.partial(geometry.project_memory_equirect,
+                                splat_mode=splat_mode)
   if project_semantics:
     # Nobody reads the semantic depth: the 'fast' kernel skips it.
-    _, proj_semantic = geometry.project_memory_equirect(
+    _, proj_semantic = project(
         memory.feats, memory.coords, relative_position, height, width,
-        constants.INVALID_SEM_VALUE, depth_scale, splat_mode=splat_mode,
-        need_depth=False)
+        constants.INVALID_SEM_VALUE, depth_scale, need_depth=False)
   else:
     proj_semantic = torch.zeros((memory.coords.shape[0], height, width, 1),
                                 dtype=torch.float32,
                                 device=memory.coords.device)
-  proj_depth, proj_rgb = geometry.project_memory_equirect(
+  proj_depth, proj_rgb = project(
       memory.rgb, memory.rgb_coords, relative_position, height, width,
-      constants.INVALID_RGB_VALUE, depth_scale, splat_mode=splat_mode)
-  proj_mask = (
-      (proj_depth > 0) & (proj_depth < 1)
-      & torch.all(proj_rgb != constants.INVALID_RGB_VALUE, dim=-1)
-  ).to(torch.float32)[..., None]
-  return proj_semantic, proj_depth, proj_rgb, proj_mask
+      constants.INVALID_RGB_VALUE, depth_scale)
+  return proj_semantic, proj_depth, proj_rgb, _proj_mask(proj_depth, proj_rgb)
 
 
 class SE3DSModel:
@@ -224,7 +264,8 @@ class SE3DSModel:
                 'proj_mask')
 
   def __init__(self, config: model_config.SE3DSConfig, variables=None,
-               device=None, generator: Optional[torch.Generator] = None):
+               device=None, generator: Optional[torch.Generator] = None,
+               mesh=None, mesh_axis: str = 'data'):
     """Args:
 
     config: the model configuration.
@@ -241,6 +282,15 @@ class SE3DSModel:
     directory). A missing path raises FileNotFoundError and an Orbax
     directory of the JAX package raises ValueError; neither falls back to
     random weights.
+
+    mesh/mesh_axis: a `DeviceMesh` with dims ('data', 'spatial')
+    (`parallel.mesh.create_mesh`) over the ranks that all build this model
+    and make the same calls. The memory splats spread their points over
+    the `mesh_axis` ranks (`parallel.splat_shard`: 'fast', 'fast_exact'
+    and 'scatter'; 'pallas' becomes 'fast' and 'pallas_exact' 'scatter',
+    as in the JAX package, and any other mode raises ValueError); with a
+    'spatial' size above 1 the generator's rows spread over the 'spatial'
+    ranks (`models.spatial`). Every rank returns the same whole outputs.
     """
     self.device = device_lib.resolve(device, 'SE3DSModel')
     if config.batch_size < 1:
@@ -249,9 +299,24 @@ class SE3DSModel:
       raise ValueError(f"memory_mode must be 'strict' or 'ring', got "
                        f'{config.memory_mode!r}.')
     if config.splat_mode not in geometry.SPLAT_MODES:
-      raise NotImplementedError(
-          f'splat_mode={config.splat_mode!r} is not ported yet; use one of '
-          f'{geometry.SPLAT_MODES} (ROADMAP.md item A10 lists the rest).')
+      raise ValueError(f'unknown splat_mode {config.splat_mode!r}; use one '
+                       f'of {geometry.SPLAT_MODES}.')
+    self.mesh, self.mesh_axis, self._rows = mesh, mesh_axis, None
+    if mesh is not None:
+      # Each kernel mode's sharded twin is the mode of its semantics.
+      renamed = {'pallas': 'fast', 'pallas_exact': 'scatter'}
+      config = dataclasses.replace(config, splat_mode=renamed.get(
+          config.splat_mode, config.splat_mode))
+      if config.splat_mode not in splat_shard.SHARDED_MODES:
+        raise ValueError(
+            f'splat_mode={config.splat_mode!r} has no sharded path; use '
+            "'fast', 'fast_exact', or 'scatter' with a mesh.")
+      if mesh.device_type != self.device.type:
+        raise ValueError(f'a {mesh.device_type} mesh for a model on '
+                         f'{self.device}')
+      sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+      if sizes.get('spatial', 1) > 1:
+        self._rows = spatial.Rows(mesh.get_group('spatial'))
     # Ring mode: writes past capacity wrap onto the oldest frame's slots
     # instead of raising (SE3DSConfig.memory_mode).
     self._ring = config.memory_mode == 'ring'
@@ -451,7 +516,8 @@ class SE3DSModel:
     proj_semantic, proj_depth, proj_rgb, proj_mask = memory_project(
         live, position, self.height, self.width, self.depth_scale,
         splat_mode=self.config.splat_mode,
-        project_semantics=self.config.project_semantics)
+        project_semantics=self.config.project_semantics, mesh=self.mesh,
+        mesh_axis=self.mesh_axis)
     proj_semantic_img = proj_semantic[..., 0]
     proj_rgb_norm = torch.clamp(
         proj_rgb / device_lib.divisor(255.0, proj_rgb), 0.0, 1.0)
@@ -462,8 +528,10 @@ class SE3DSModel:
         'proj_mask': proj_mask,
         'blurred_mask': torch.zeros_like(proj_mask),
     }
+    outputs = (self.model(inputs) if self._rows is None
+               else spatial.generate(self._rows, self.model, inputs))
     (mu, logvar, _, pred_depth, pred_semantic, _, generated_rgb
-     ) = self.model(inputs)
+     ) = outputs
     pred_depth = torch.clamp(pred_depth[..., 0], 0.0, 1.0)
     pred_rgb = (torch.clamp(generated_rgb, 0, 1) * 255).to(torch.int32)
     # seg_out is all zero by the release contract; its argmax is class 0.

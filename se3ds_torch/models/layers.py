@@ -348,15 +348,20 @@ class PartialConv(_Conv):
     if self.u is not None and self.training and not recomputing():
       with torch.no_grad():
         self.u.copy_(normalized_kernel(self.weight, self.u)[1])
+    window_sum = mask_window_sum(mask, kh, kw, self.strides,
+                                 fused_pad=self.fused_pad,
+                                 circular=self.wraps, padding=self.padding)
+    return self.renormalise(self._conv(feature * mask), window_sum)
+
+  def renormalise(self, out: torch.Tensor, window_sum: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, update_mask) from the convolution of the masked features
+    (without the bias) and the mask's window sums."""
+    kh, kw = self.weight.shape[-2:]
     eps = 1e-6
-    update_mask = mask_window_sum(mask, kh, kw, self.strides,
-                                  fused_pad=self.fused_pad,
-                                  circular=self.wraps,
-                                  padding=self.padding)
-    mask_ratio = (kh * kw) / (update_mask + eps)
-    update_mask = torch.clamp(update_mask, 0.0, 1.0)
+    mask_ratio = (kh * kw) / (window_sum + eps)
+    update_mask = torch.clamp(window_sum, 0.0, 1.0)
     mask_ratio = mask_ratio * update_mask
-    out = self._conv(feature * mask)
     if self.bias is not None:
       # The reference subtracts a bias the conv never added.
       bias = self.bias.to(out.dtype)[:, None, None]

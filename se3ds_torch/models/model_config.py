@@ -1,9 +1,7 @@
 """Config object for SE3DS inference models (a copy of
 `se3ds_tpu.models.model_config`, same fields and defaults).
 
-Fields the port does not serve yet raise from `SE3DSModel.__init__`
-(see ROADMAP.md): the splat modes 'sorted_packed', 'fast_exact' and
-'dual_sorted'. A `ckpt_path` names a checkpoint the port wrote
+Every field is served. A `ckpt_path` names a checkpoint the port wrote
 (`train.checkpoints.restore_ema_generator`).
 """
 
@@ -31,11 +29,30 @@ class SE3DSConfig:
   use_blurred_mask: bool = True
   memory_frames: int = constants.PANO_VIDEO_LENGTH  # capacity in frames
   compute_dtype: str = 'float32'  # 'bfloat16' for faster inference
-  # Guidance-splat winner selection. The port serves 'fast' (packed
-  # depth-bucket | feature-byte winner, exact depth) and 'pallas' (the
-  # same semantics; both run the 'fast' CUDA kernel on the card), and the
-  # exact modes 'scatter', 'sorted' and 'pallas_exact' (min depth, 0.1 m
-  # window, per-channel max; all run the exact CUDA kernel on the card).
+  # Guidance-splat winner selection (ops/splat.py). Every mode keeps the
+  # exact minimum depth per pixel; they differ in the features:
+  #   'scatter'    exact reference semantics: among the points within
+  #                0.1 m of the minimum, the per-channel maximum (the
+  #                exact CUDA kernel on the card).
+  #   'sorted'     'scatter' (bit-identical; the exact kernel).
+  #   'pallas_exact' 'scatter' (the exact kernel).
+  #   'sorted_packed' 'scatter' for byte features (RGB, class ids), from
+  #                a sort by (pixel, depth) in PyTorch ops; other values
+  #                clip and truncate to bytes.
+  #   'dual_sorted' 'sorted_packed' of the semantic and the RGB cloud in
+  #                one sort; needs project_semantics and no mesh.
+  #   'fast'       DEFAULT: the point in the shallowest depth_scale/256
+  #                bucket with the largest feature bytes; differs from
+  #                'scatter' only where a pixel's window holds several
+  #                points (the 'fast' CUDA kernel on the card).
+  #   'pallas'     'fast' (the 'fast' kernel).
+  #   'fast_exact' the exact 0.1 m window, then the largest feature bytes
+  #                of one point (PyTorch ops); equal to 'scatter' where a
+  #                window holds one point.
+  # The packed modes ('fast', 'pallas', 'fast_exact', 'sorted_packed')
+  # return the exact splat for more than 3 feature channels. With a mesh,
+  # 'fast', 'fast_exact' and 'scatter' run sharded ('pallas' as 'fast',
+  # 'pallas_exact' as 'scatter'); the others raise.
   splat_mode: str = 'fast'
   # The port always folds spectral norms into the kernels at load (it
   # serves eval only); the flag is kept for config compatibility.

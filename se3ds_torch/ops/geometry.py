@@ -25,12 +25,24 @@ from se3ds_torch import device as device_lib
 from se3ds_torch.ops import image as image_ops
 from se3ds_torch.ops import splat
 
-# The exact modes are bit-identical in the JAX package ('scatter' is its
-# definition); the port runs all three as `splat.project_to_feat`. 'fast'
-# and 'pallas' share the packed-key semantics. 'sorted_packed',
-# 'fast_exact' and 'dual_sorted' are not ported yet.
-EXACT_SPLAT_MODES = ('scatter', 'sorted', 'pallas_exact')
-SPLAT_MODES = EXACT_SPLAT_MODES + ('fast', 'pallas')
+# Each splat mode of the JAX package: the CUDA kernel it runs on the card
+# ('exact', 'fast', or None for a mode of plain PyTorch ops on either
+# device) and its function on view coordinates on the CPU. The exact
+# modes are bit-identical in the JAX package ('scatter' is their
+# definition; `splat.project_to_feat_sorted` is 'sorted' as written
+# there), so all three run the exact splat; 'pallas' is 'fast'.
+# 'dual_sorted' splats the two clouds of a memory together
+# (`project_dual_to_equirectangular`, `inference.memory_project`).
+_SPLATS = {
+    'scatter': ('exact', splat.project_to_feat_plain),
+    'sorted': ('exact', splat.project_to_feat_plain),
+    'pallas_exact': ('exact', splat.project_to_feat_plain),
+    'fast': ('fast', splat.project_to_feat_fast_plain),
+    'pallas': ('fast', splat.project_to_feat_fast_plain),
+    'fast_exact': (None, splat.project_to_feat_fast_exact),
+    'sorted_packed': (None, splat.project_to_feat_sorted_packed),
+}
+SPLAT_MODES = tuple(_SPLATS) + ('dual_sorted',)
 
 
 def equirect_view_coords(xyz1: torch.Tensor) -> torch.Tensor:
@@ -63,15 +75,16 @@ def equirect_view_coords(xyz1: torch.Tensor) -> torch.Tensor:
                      dim=1).to(dtype)
 
 
-def _is_exact(splat_mode: Optional[str]) -> bool:
-  """Whether `splat_mode` runs the exact splat; raises on unported modes."""
-  if splat_mode is None:
-    splat_mode = 'scatter'
-  if splat_mode not in SPLAT_MODES:
-    raise NotImplementedError(
-        f'splat_mode={splat_mode!r} is not ported yet (ROADMAP.md item '
-        f'A10); the port runs {SPLAT_MODES}.')
-  return splat_mode in EXACT_SPLAT_MODES
+def _splat(splat_mode: Optional[str]):
+  """`_SPLATS[splat_mode]` (None is 'scatter'); raises ValueError on a
+  mode of no single-cloud splat."""
+  splat_mode = 'scatter' if splat_mode is None else splat_mode
+  if splat_mode not in _SPLATS:
+    hint = (' (it splats both clouds: project_dual_to_equirectangular)'
+            if splat_mode in SPLAT_MODES else '')
+    raise ValueError(f'splat_mode={splat_mode!r} is not a single-cloud '
+                     f'splat mode{hint}; use one of {tuple(_SPLATS)}.')
+  return _SPLATS[splat_mode]
 
 
 def project_feats_to_equirectangular(
@@ -81,6 +94,7 @@ def project_feats_to_equirectangular(
     width: int,
     void_class: float,
     depth_scale: float,
+    use_sorted_splat: bool = False,
     splat_mode: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Projects point-cloud features into an equirectangular image.
@@ -88,6 +102,7 @@ def project_feats_to_equirectangular(
   This is `project_memory_equirect` at a zero offset: on CUDA tensors the
   kernels compute the view coordinates; on CPU tensors the plain path,
   `equirect_view_coords` then the splat's plain version (x - 0 == x).
+  The arguments are the JAX function's, in its order.
 
   Args:
     feats: (N, M) or (N, M, C) point features.
@@ -95,14 +110,20 @@ def project_feats_to_equirectangular(
     height, width: Output pano size in pixels.
     void_class: Feature value marking an empty point.
     depth_scale: Maximum depth in metres.
-    splat_mode: None (the JAX default) or one of the exact modes
+    use_sorted_splat: the JAX package's legacy alias of
+      splat_mode='sorted', read when `splat_mode` is None.
+    splat_mode: None ('scatter', the JAX default); the exact modes
       'scatter', 'sorted' and 'pallas_exact' (on the card the exact CUDA
-      kernel), or 'fast' or 'pallas' (on the card the 'fast' CUDA kernel).
+      kernel); 'fast' or 'pallas' (on the card the 'fast' CUDA kernel, or
+      the exact one for more than 3 channels); 'fast_exact' or
+      'sorted_packed' (PyTorch ops on either device; `splat`).
 
   Returns:
     reprojected_depth: (N, H, W) depth in [0, 1].
     reprojected_feats: (N, H, W[, C]) feature image.
   """
+  if splat_mode is None:
+    splat_mode = 'sorted' if use_sorted_splat else 'scatter'
   offset = torch.zeros((1, 4), dtype=xyz1.dtype, device=xyz1.device)
   return project_memory_equirect(feats, xyz1, offset, height, width,
                                  void_class, depth_scale, splat_mode)
@@ -123,7 +144,8 @@ def project_memory_equirect(
 
   On CUDA tensors the splat kernels read the world points and the offset
   and compute the view coordinates in registers (`splat.splat_images`):
-  no translated copy or view tensor is written. CPU tensors take
+  no translated copy or view tensor is written. CPU tensors, and the
+  modes without a kernel on either device, take
   `project_memory_equirect_plain`.
 
   Args:
@@ -139,10 +161,10 @@ def project_memory_equirect(
     reprojected_depth: (N, H, W) depth in [0, 1], or None.
     reprojected_feats: (N, H, W[, C]) feature image.
   """
-  exact = _is_exact(splat_mode)
-  if xyz1.is_cuda:
-    return splat.splat_images(exact, xyz1, feats, height, width, depth_scale,
-                              void_class, offset=offset,
+  kernel, _ = _splat(splat_mode)
+  if xyz1.is_cuda and kernel is not None:
+    return splat.splat_images(kernel == 'exact', xyz1, feats, height, width,
+                              depth_scale, void_class, offset=offset,
                               need_depth=need_depth)
   depth, feat = project_memory_equirect_plain(
       feats, xyz1, offset, height, width, void_class, depth_scale,
@@ -162,12 +184,39 @@ def project_memory_equirect_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Plain PyTorch version of `project_memory_equirect` on any device:
   the translated copy `xyz1 - offset`, `equirect_view_coords` and the
-  splat's plain version (what the CPU runs)."""
-  splat_fn = (splat.project_to_feat_plain if _is_exact(splat_mode)
-              else splat.project_to_feat_fast_plain)
+  splat's plain version (what the CPU runs), or the mode's function for
+  a mode without a kernel."""
+  _, splat_fn = _splat(splat_mode)
   return splat_fn(equirect_view_coords(xyz1 - offset[..., None]),
                   feats.to(xyz1.dtype), height, width,
                   depth_scale=depth_scale, input_void_class=void_class)
+
+
+def project_dual_to_equirectangular(
+    sem_feats: torch.Tensor,
+    sem_xyz1: torch.Tensor,
+    rgb_feats: torch.Tensor,
+    rgb_xyz1: torch.Tensor,
+    height: int,
+    width: int,
+    sem_void_class: float,
+    rgb_void_class: float,
+    depth_scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The semantic and the RGB equirect splat in one sort (JAX
+  `geometry.project_dual_to_equirectangular`): both clouds' view
+  coordinates through `splat.project_dual_sorted_packed`. Plain PyTorch
+  on either device.
+
+  Returns (rgb depth (N, H, W), semantic image (N, H, W, 1), RGB image
+  (N, H, W, 3)).
+  """
+  dtype = rgb_xyz1.dtype
+  return splat.project_dual_sorted_packed(
+      equirect_view_coords(sem_xyz1), sem_feats.to(dtype),
+      equirect_view_coords(rgb_xyz1), rgb_feats.to(dtype), height, width,
+      depth_scale=depth_scale, sem_void_class=sem_void_class,
+      rgb_void_class=rgb_void_class)
 
 
 def _linspace_f32(start: float, stop: float, num: int,

@@ -13,6 +13,9 @@ Each source has a point pass and a per-pixel resolve:
   cooperative launch into 1 + C words per pixel (min depth bits, then the
   min of the complemented order keys of the features in the window),
   `exact_resolve` writes the images of `splat.project_to_feat`.
+  `exact_pass` runs one pass alone (an ordinary launch), for a splat
+  whose minima are combined across ranks between the passes
+  (`parallel.splat_shard`).
 
 The point passes take either view coordinates (`offset=None`) or world
 points and a (B, 4) camera offset, whose equirect view coordinates they
@@ -27,7 +30,12 @@ plain version give the same bits: min and max do not depend on the order
 of the points.
 
 `LAUNCHES` and `EXACT_LAUNCHES` count the point-pass launches of each
-source in this process (one per call; resolves are not counted).
+source in this process (one per call of `fast_words`, `exact_words` or
+`exact_pass`; resolves are not counted).
+
+The words are u32 held in int32 tensors and combine by UNSIGNED minimum
+(0xFFFFFFFF, -1 as int32, is "no point"); `all_reduce_unsigned_min`
+combines them over a process group, whose MIN is signed.
 """
 
 from __future__ import annotations
@@ -68,6 +76,10 @@ _ARGTYPES = {
     # tolerance, words, stream
     'se3ds_splat_exact': _POINT_ARGS + [ctypes.c_float, ctypes.c_void_p,
                                         ctypes.c_void_p],
+    # tolerance, pass, words, stream
+    'se3ds_splat_exact_pass': _POINT_ARGS + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p,
+                                             ctypes.c_void_p],
     # words, num_pixels, channels, depth_scale, void_key, depth, feat,
     # stream
     'se3ds_splat_exact_resolve': [ctypes.c_void_p, ctypes.c_int64,
@@ -333,6 +345,59 @@ def exact_words(points: torch.Tensor, feats: torch.Tensor, height: int,
           splat_lib.DEPTH_COLLISION_TOLERANCE, words.data_ptr())
   EXACT_LAUNCHES += 1
   return words
+
+
+def exact_pass(points: torch.Tensor, feats: torch.Tensor, height: int,
+               width: int, depth_scale: float, input_void_class: float,
+               pass_: int, words: Optional[torch.Tensor] = None,
+               offset: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """One pass of the exact splat (CUDA tensors), an ordinary launch.
+
+  Pass 1 makes the words (a memset, then the depth minima into word 0);
+  pass 2 folds the window's features into words 1..C of `words`, testing
+  each point against word 0 as it stands (the minima of every rank after
+  `all_reduce_unsigned_min`). Args as `exact_words`; returns the words.
+  """
+  global EXACT_LAUNCHES
+  if pass_ not in (1, 2) or (pass_ == 2) != (words is not None):
+    raise ValueError('pass 1 makes the words, pass 2 takes them')
+  points, feats, offset = check_inputs(points, feats, height, width,
+                                       max_channels=None, offset=offset)
+  batch, _, num_points = points.shape
+  shape = (batch, height * width, 1 + feats.shape[-1])
+  if words is None:
+    words = (_empty_words(shape, points.device) if not (batch and num_points)
+             else torch.empty(shape, dtype=torch.int32, device=points.device))
+  elif words.shape != shape or words.dtype != torch.int32 or (
+      not words.is_contiguous()):
+    raise ValueError(f'pass 2 takes the contiguous int32 words {shape} of '
+                     f'pass 1, got {tuple(words.shape)} {words.dtype}')
+  if not (batch and num_points):
+    return words
+  with torch.cuda.device(points.device):
+    _call(EXACT_SOURCE, 'se3ds_splat_exact_pass',
+          *_point_args(points, feats, offset, height, width, depth_scale,
+                       input_void_class),
+          splat_lib.DEPTH_COLLISION_TOLERANCE, pass_, words.data_ptr())
+  EXACT_LAUNCHES += 1
+  return words
+
+
+_SIGN_BIT = -2**31  # 0x80000000 as an int32
+
+
+def all_reduce_unsigned_min(words: torch.Tensor, group=None) -> torch.Tensor:
+  """The elementwise UNSIGNED minimum of contiguous int32 `words` over
+  `group`, in place. Flipping the sign bit maps unsigned order onto
+  signed order, which the group's MIN takes."""
+  import torch.distributed as dist
+
+  if words.dtype != torch.int32 or not words.is_contiguous():
+    raise ValueError(f'contiguous int32 words, got {words.dtype}')
+  flip = torch.full((), _SIGN_BIT, dtype=torch.int32, device=words.device)
+  words.bitwise_xor_(flip)
+  dist.all_reduce(words, op=dist.ReduceOp.MIN, group=group)
+  return words.bitwise_xor_(flip)
 
 
 def exact_resolve(words: torch.Tensor, depth_scale: float,

@@ -26,6 +26,10 @@ gloo on the CPU) and each rank's slice of every batch.
   (`DataParallel.shard_module_`). At world 1 nothing is sharded.
 * Checkpoints: `Zero1Adam.state_dict` and `DataParallel.gather_state_dict`
   consolidate the shards on rank 0 into the bundle a world-1 run writes.
+* Serving: `create_mesh` arranges the group's ranks as JAX's ('data',
+  'spatial') mesh, a `DeviceMesh`: `SE3DSModel(mesh=...)` spreads the
+  splat's points over 'data' (`parallel.splat_shard`) and the
+  generator's rows over 'spatial' (`models.spatial`).
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.distributed import device_mesh
 
+from se3ds_torch import device as device_lib
 from se3ds_torch.models import layers
 
 BUCKET_BYTES = 32 * 2**20
@@ -74,6 +81,31 @@ def init_from_env(device: torch.device) -> torch.device:
     device = torch.device('cuda', int(os.environ.get('LOCAL_RANK', 0)))
     torch.cuda.set_device(device)
   return device
+
+
+def create_mesh(num_data: Optional[int] = None, num_spatial: int = 1,
+                device=None) -> device_mesh.DeviceMesh:
+  """A (data, spatial) `DeviceMesh` over the process group's ranks (JAX
+  `mesh.create_mesh`): rank r at (r // num_spatial, r % num_spatial).
+
+  The group is `init_from_env`'s (NCCL on the card, gloo on the CPU): a
+  caller's own, or torchrun's. `device` is where this rank runs ('cuda'
+  by default; 'cpu' for gloo). `num_data` defaults to the world size over
+  `num_spatial`; a shape whose size is not the world size raises
+  ValueError, as the JAX mesh does for the device count.
+  """
+  device = init_from_env(device_lib.resolve(device, 'create_mesh'))
+  if not dist.is_initialized():
+    raise RuntimeError('create_mesh needs a torch.distributed process '
+                       'group: run under torchrun or initialise one first')
+  world = dist.get_world_size()
+  if num_data is None:
+    num_data = world // num_spatial
+  if num_data * num_spatial != world:
+    raise ValueError(f'mesh {num_data}x{num_spatial} != {world} ranks')
+  return device_mesh.DeviceMesh(
+      device.type, torch.arange(world).reshape(num_data, num_spatial),
+      mesh_dim_names=('data', 'spatial'))
 
 
 def zero1_axis(shape: Sequence[int], num_data: int) -> Optional[int]:
@@ -191,20 +223,52 @@ class DataParallel:
         param.data = self.shard(param.data, axis).clone()
 
   def gather_state_dict(self, module: nn.Module,
-                        axes: Sequence[Optional[int]]
+                        axes: Sequence[Optional[int]],
+                        every_rank: bool = False
                         ) -> Optional[Dict[str, torch.Tensor]]:
     """The whole state_dict of a module sharded by `shard_module_`:
-    on rank 0 (each gathered tensor moved to the host), None elsewhere.
-    At world 1 it is the module's own state_dict."""
+    on rank 0 (each gathered tensor moved to the host), None elsewhere;
+    with `every_rank`, on every rank (on the module's device). At world 1
+    it is the module's own state_dict."""
     if self.world_size == 1:
       return module.state_dict()
     sharded = {name: axis for (name, _), axis in
                zip(module.named_parameters(), axes)}
+    keep = every_rank or self.is_chief
     out = {}
     for name, tensor in module.state_dict().items():
       full = self.gather(tensor, sharded.get(name))
-      out[name] = full.cpu() if self.is_chief else None
-    return out if self.is_chief else None
+      out[name] = full if every_rank else full.cpu() if keep else None
+    return out if keep else None
+
+  def share(self, size: int) -> slice:
+    """This rank's rows of `size` rows split in rank order (balanced, any
+    size; a rank may get none)."""
+    return slice(size * self.rank // self.world_size,
+                 size * (self.rank + 1) // self.world_size)
+
+  def gather_rows(self, arrays: Dict[str, list]
+                  ) -> Optional[Dict[str, list]]:
+    """Every rank's {key: [array per batch]} on rank 0, each batch's rows
+    concatenated in rank order (None for a rank without rows); None on
+    the other ranks. At world 1 it is `arrays`."""
+    if self.world_size == 1:
+      return arrays
+    everyone = [None] * self.world_size if self.is_chief else None
+    dist.gather_object(arrays, everyone, dst=0)
+    if not self.is_chief:
+      return None
+    return {key: [np.concatenate([r[key][j] for r in everyone
+                                  if r[key][j] is not None], 0)
+                  for j in range(len(arrays[key]))] for key in arrays}
+
+  def broadcast(self, value):
+    """Rank 0's `value` (any picklable object) on every rank."""
+    if self.world_size == 1:
+      return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
   def shard_state_dict(self, state_dict: Dict[str, torch.Tensor],
                        module: nn.Module, axes: Sequence[Optional[int]]

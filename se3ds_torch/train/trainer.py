@@ -25,7 +25,10 @@ each rank reads its shard of the files (or its slice of each chunk of
 `batches`), the step averages gradients and normalises over the global
 batch, the optimizer state and the EMA are ZeRO-1 shards, and rank 0
 alone writes checkpoints, logs, events, image grids and the operative
-config. Without `WORLD_SIZE` it runs at world 1. `test` runs at world 1.
+config. Without `WORLD_SIZE` it runs at world 1. `test` too runs under
+torchrun: every rank rolls out its share of each eval batch, rank 0
+gathers the pools, computes the scores and alone writes the scores, PNGs
+and events.
 """
 
 from __future__ import annotations
@@ -522,12 +525,15 @@ class Trainer:
           value, self.show_num, f'{name_prefix}_{key}'))
     return image_dict, output_dict
 
-  def _whole_ema(self, state: state_lib.TrainState):
+  def _whole_ema(self, state: state_lib.TrainState,
+                 every_rank: bool = False):
     """The EMA generator: `state.ema` at world 1; at a larger world one
-    built from its gathered ZeRO-1 shards on rank 0, None elsewhere."""
+    built from its gathered ZeRO-1 shards on rank 0, None elsewhere (with
+    `every_rank`, on every rank)."""
     if self.data.world_size == 1:
       return state.ema
-    whole = self.data.gather_state_dict(state.ema, state.g_opt.axes)
+    whole = self.data.gather_state_dict(state.ema, state.g_opt.axes,
+                                        every_rank=every_rank)
     if whole is None:
       return None
     ema = copy.deepcopy(state.generator).requires_grad_(False)
@@ -567,16 +573,21 @@ class Trainer:
     raw and the EMA generator, written to `scores_{test_split}.csv` and
     the event file. `unit_test=True` evaluates the fresh state once and
     returns its results.
+
+    At a world above 1 every rank runs it: each polls `model_dir` and
+    evaluates the checkpoint rank 0 evaluates, rolls out its share of
+    every eval batch (`EvalMetric(data=...)`), and rank 0 computes the
+    scores and alone writes the CSV, the PNGs and the event file; every
+    rank returns the scores of a `unit_test`.
     """
     log.info('Start Testing...')
-    if self.data.world_size != 1:
-      raise NotImplementedError('Trainer.test runs at world 1; run it '
-                                'without torchrun')
+    chief = self.data.is_chief
     self.global_batch_size = self.test_batch_size
     self._create_data(for_train=False)
     task_mgr = task_manager.TaskManagerWithCsvResults(
         self.model_dir, score_file=f'scores_{self.test_split}.csv')
-    test_logger = logger_lib.UniversalLogger(self.model_dir, step=0)
+    test_logger = (logger_lib.UniversalLogger(self.model_dir, step=0)
+                   if chief else None)
     try:
       metric = metrics_lib.EvalMetric(
           ds_factory=self.eval_ds_factory,
@@ -588,7 +599,7 @@ class Trainer:
           splat_mode=self.eval_splat_mode,
           inception_model=config_lib.apply_config('inception_model').to(
               self.device),
-          device=self.device)
+          device=self.device, data=self.data)
 
       state = self.create_state()
       ckpt_mgr = ckpt_lib.CheckpointManager(self.model_dir, self.max_to_keep)
@@ -597,10 +608,10 @@ class Trainer:
       if unit_test:
         checkpoints = ['test-1']
       else:
-        checkpoints = task_mgr.unevaluated_checkpoints(
+        checkpoints = self._agreed(task_mgr.unevaluated_checkpoints(
             timeout=_HOURS_IN_DAY * _SECS_IN_HOUR,
             num_batched_steps=self.num_batched_steps,
-            eval_every_steps=self.eval_every_steps)
+            eval_every_steps=self.eval_every_steps))
 
       for checkpoint_path in checkpoints:
         if not unit_test:
@@ -613,13 +624,14 @@ class Trainer:
             state, 'eval', display_batch=display_batch)
         image_dict = {f'{k}/{self.test_split}': v
                       for k, v in image_dict.items()}
-        self.save_eval_images(step, output_dict)
+        if chief:
+          self.save_eval_images(step, output_dict)
 
         time_start = time.time()
         fid, _, rmse, is_score = metric.calculate_fid_score(
             state.generator.eval())
         ema_fid, _, ema_rmse, ema_is = metric.calculate_fid_score(
-            state.ema.eval())
+            self._whole_ema(state, every_rank=True).eval())
         log.info('Step %d, Eval Time %.2f minutes', step,
                  (time.time() - time_start) / 60.0)
 
@@ -631,11 +643,25 @@ class Trainer:
           result_dict.update({f'{k}@{i}': v for k, v in curr.items()})
         result_dict = {f'{self.test_split}/eval_image/{k}': v
                        for k, v in result_dict.items()}
-        test_logger.log_scalars(step, **result_dict)
-        test_logger.log_images(step, **image_dict)
-        task_mgr.add_eval_result(checkpoint_path, result_dict, -1)
+        if chief:
+          test_logger.log_scalars(step, **result_dict)
+          test_logger.log_images(step, **image_dict)
+          task_mgr.add_eval_result(checkpoint_path, result_dict, -1)
         if unit_test:
           return result_dict
     finally:
-      test_logger.close()
+      if test_logger is not None:
+        test_logger.close()
     return None
+
+  def _agreed(self, checkpoints: Iterator[str]) -> Iterator[str]:
+    """`checkpoints`, each held to rank 0's. Every rank polls the same
+    `model_dir` itself (so a wait between checkpoints holds no collective
+    open), and so finds the same checkpoints in the same order; a rank
+    that does not raises."""
+    for path in checkpoints:
+      chief_path = self.data.broadcast(path)
+      if chief_path != path:
+        raise RuntimeError(f'rank {self.data.rank} found {path}, rank 0 '
+                           f'{chief_path}')
+      yield path

@@ -586,3 +586,47 @@ def test_perspective_functions_on_the_card_equal_the_cpu(card):
     atol = 1e-3 if name.startswith('resize') else 2e-2
     assert got.shape == want.shape, name
     assert float((got - want).abs().max()) <= atol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('channels', [1, 3, 5])
+def test_split_exact_passes_equal_the_cooperative_launch(card, channels):
+  """`exact_pass` 1 then 2 (two ordinary launches) gives the words of the
+  one cooperative launch, and each counts one launch; tolerance: none."""
+  coords, feats = _cloud(40 + channels, 2, 150000, channels, card,
+                         fractional=True)
+  args = (coords, feats, 64, 128, 20.0, -1.0)
+  coop = splat_cuda.exact_words(*args)
+  before = splat_cuda.EXACT_LAUNCHES
+  words = splat_cuda.exact_pass(*args, 1)
+  words = splat_cuda.exact_pass(*args, 2, words=words)
+  torch.cuda.synchronize()
+  assert splat_cuda.EXACT_LAUNCHES == before + 2
+  assert torch.equal(words, coop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['fast', 'fast_exact', 'scatter'])
+def test_sharded_splat_at_world_one_equals_the_unsharded(card, mode,
+                                                         tmp_path):
+  """The point-sharded splat on a world-1 NCCL group (the kernels' split
+  entry points and the words' unsigned-minimum combine), world points
+  at a camera offset, 3 and 5 channels; tolerance: none."""
+  import torch.distributed as dist
+  from se3ds_torch.parallel import mesh as mesh_lib
+  from se3ds_torch.parallel import splat_shard
+  dist.init_process_group('nccl', init_method=f'file://{tmp_path}/rv',
+                          world_size=1, rank=0)
+  try:
+    group = mesh_lib.create_mesh(1, 1).get_group('data')
+    for channels in (3, 5):
+      xyz, feats = _cloud(50 + channels, 2, 120000, channels, card)
+      offset = torch.tensor([[0.3, -0.2, 0.1, 0.0]], device=card)
+      got = splat_shard.project_memory_equirect_sharded(
+          feats, xyz, offset, 64, 128, -1.0, 20.0, group=group,
+          splat_mode=mode)
+      want = geometry.project_memory_equirect(feats, xyz, offset, 64, 128,
+                                              -1.0, 20.0, mode)
+      assert all(torch.equal(a, b) for a, b in zip(got, want)), channels
+  finally:
+    dist.destroy_process_group()

@@ -56,6 +56,8 @@ def test_port_files_found():
           'se3ds_torch/examples/re10k_video_demo.py',
           'se3ds_torch/examples/vln_augmentation_demo.py',
           'se3ds_torch/parallel/mesh.py', 'se3ds_torch/utils/flops.py',
+          'se3ds_torch/parallel/splat_shard.py',
+          'se3ds_torch/models/spatial.py',
           'se3ds_torch/profile_training.py', 'chip_smoke.py'} <= names
 
 

@@ -220,13 +220,14 @@ def test_no_card_needs_an_explicit_cpu_device(monkeypatch):
 
 
 def test_unported_options_raise(tmp_path):
-  """An unported splat mode, and an Orbax checkpoint of the JAX package
-  (the port reads only its own checkpoints; never random weights
-  instead)."""
+  """A splat mode the JAX package does not have, and an Orbax checkpoint
+  of the JAX package (the port reads only its own checkpoints; never
+  random weights instead). Every JAX splat mode is served
+  (tests/test_torch_splat_modes.py)."""
   base = config_t.get_test_config()
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(ValueError, match='splat_mode'):
     inference_t.SE3DSModel(
-        dataclasses.replace(base, splat_mode='sorted_packed'), device='cpu')
+        dataclasses.replace(base, splat_mode='sorted_fast'), device='cpu')
   (tmp_path / '_CHECKPOINT_METADATA').write_text('{}')
   with pytest.raises(ValueError, match='Orbax'):
     inference_t.SE3DSModel(

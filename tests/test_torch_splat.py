@@ -144,10 +144,19 @@ def test_plain_buffers_decode_like_jax_packed_key():
 
 
 def test_too_many_channels_raise():
+  """Four channels do not pack into the u32 key: 'fast' returns the exact
+  splat, bit-equal to JAX's 'fast' (which does the same) and to the
+  port's exact splat."""
   coords, feats = _cloud(7, 1, 64, 3, -1.0)
   feats4 = np.concatenate([feats, feats[..., :1]], axis=-1)
-  with pytest.raises(NotImplementedError):
-    _port(coords, feats4, -1.0)
+  pd, pf = _port(coords, feats4, -1.0)
+  jd, jf = _jax(j_splat.project_to_feat_fast, coords, feats4, -1.0)
+  ed, ef = t_splat.project_to_feat(torch.from_numpy(coords),
+                                   torch.from_numpy(feats4), H, W,
+                                   DEPTH_SCALE, -1.0)
+  for port, ref, exact in ((pd, jd, ed), (pf, jf, ef)):
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(port.numpy(), exact.numpy())
 
 
 # -- geometry ---------------------------------------------------------------
@@ -212,10 +221,16 @@ def test_mask_pano_matches_jax():
 
 
 def test_unported_splat_modes_raise():
+  """Every single-cloud mode of the JAX package is ported; 'dual_sorted'
+  splats two clouds (`project_dual_to_equirectangular`) and a name the
+  JAX package does not have raises too."""
   xyz = torch.zeros((1, 4, 8))
   feats = torch.zeros((1, 8, 3))
-  for mode in ('sorted_packed', 'fast_exact', 'dual_sorted'):
-    with pytest.raises(NotImplementedError):
+  for mode in ('sorted_packed', 'fast_exact', 'sorted', 'pallas'):
+    geometry_t.project_feats_to_equirectangular(feats, xyz, 8, 16, -1.0,
+                                                20.0, splat_mode=mode)
+  for mode in ('dual_sorted', 'sorted_fast'):
+    with pytest.raises(ValueError, match='splat_mode'):
       geometry_t.project_feats_to_equirectangular(feats, xyz, 8, 16, -1.0,
                                                   20.0, splat_mode=mode)
 
@@ -235,7 +250,8 @@ def test_memory_splat_at_an_offset_is_subtract_then_project(mode):
   got = geometry_t.project_memory_equirect(feats, xyz, offset, H, W, -1.0,
                                            DEPTH_SCALE, mode)
   want = geometry_t.project_feats_to_equirectangular(
-      feats, xyz - offset[..., None], H, W, -1.0, DEPTH_SCALE, mode)
+      feats, xyz - offset[..., None], H, W, -1.0, DEPTH_SCALE,
+      splat_mode=mode)
   assert all(torch.equal(a, b) for a, b in zip(got, want))
   depth, feat = geometry_t.project_memory_equirect(
       feats, xyz, offset, H, W, -1.0, DEPTH_SCALE, mode, need_depth=False)
