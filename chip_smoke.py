@@ -1,6 +1,7 @@
 """Drives the PyTorch/CUDA port of SE3DS (serving and its API, every
 splat mode and the mesh, FID eval and GAN training, remat and the
-data-parallel paths) on one NVIDIA card.
+data-parallel paths, a released-format checkpoint's import) on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -112,6 +113,20 @@ Phases, in order; any failure raises and the process exits non-zero:
      through `torchrun --standalone --nproc_per_node 1 -m se3ds_torch.main
      --mode TEST` on phase 8's checkpoint (run between phases 9 and 10,
      while it exists), its scores against phase 8's TEST scores.
+  12. A release-format checkpoint at full width: (a) phase 4's generator
+     (gen_dims 128, ResNet-101) in its trainable form with seeded weights,
+     written by `tf_bundle.write_bundle` as an `ema_generator` bundle
+     under the released checkpoints' TF key names and Keras layouts
+     (~4.46 GB, 1,765 tensors and save_counter) with its `checkpoint`
+     state file; (b) `python -m se3ds_torch.convert_tf_checkpoint` on the
+     directory in a subprocess (its seconds, GB/s and peak RSS); (c) the
+     converted file and the source's own `save_ema_generator` file served
+     through SE3DSModel(ckpt_path=...) in bf16: weights torch.equal, and
+     add_to_memory plus 2 feedback steps torch.equal with cuDNN
+     deterministic; (d) `utils/math_utils`' IoU, accuracy, KL and
+     nearest-neighbour inpainting on the card against the CPU; (e) a line
+     saying whether h5py is here (the `.h5` loader is not run). The
+     bundle and the files are deleted after the phase.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2330,6 +2345,250 @@ def phase_test_torchrun(power, model_dir, cli_root):
       + f' ({power})')
 
 
+RELEASE_STEPS = 2
+MATH_SIZES = {'iou': (2, 8, 128, 256, 42), 'inpaint': (2, 48, 96)}
+# The card's and the CPU's exp and log differ by ULPs.
+KL_RTOL, KL_ATOL = 1e-5, 1e-6
+MEAN_RTOL = 1e-6  # a mean of exact per-frame ratios, summed in another order
+
+
+def release_bundle_arrays(generator):
+  """{TF key: numpy array} of a trainable generator under the released
+  checkpoints' key names (`tf_import.torch_path_to_tf_prefix`), in Keras
+  layouts: HWIO kernels (HWOI for a transposed conv), BatchNorm
+  gamma/beta/moving_mean/moving_variance, `spectral_conv_<k>_u`, and the
+  int64 save_counter. The inverse of `tf_import.convert_tf_checkpoint`."""
+  from se3ds_torch.models import layers
+  from se3ds_torch.train import tf_import
+  attr = tf_import.ATTR_SUFFIX
+  modules = dict(generator.named_modules())
+  bn_leaves = {'weight': 'gamma', 'bias': 'beta',
+               'running_mean': 'moving_mean',
+               'running_var': 'moving_variance'}
+  out = {}
+  for k, (name, tensor) in enumerate(generator.state_dict().items()):
+    module, leaf = name.rsplit('.', 1)
+    prefix = f'ema_generator/{tf_import.torch_path_to_tf_prefix(module)}'
+    value = tensor.numpy()
+    if leaf == 'u':
+      leaf = f'spectral_conv_{k}_u'
+    elif isinstance(modules[module], layers.SyncBatchNorm):
+      leaf = bn_leaves[leaf]
+    elif leaf == 'weight':
+      leaf, value = 'kernel', value.transpose(2, 3, 1, 0)
+    out[f'{prefix}/{leaf}{attr}'] = value
+  out['save_counter' + attr] = np.int64(1)
+  return out
+
+
+def run_sampling_rss(argv, timeout):
+  """Runs argv from the repo; returns (exit code, its output, its peak
+  resident bytes sampled from /proc/<pid>/statm every 20 ms). A spawned
+  process's ru_maxrss holds its parent's peak, and this machine's /proc
+  has no VmHWM."""
+  import tempfile
+  page = os.sysconf('SC_PAGE_SIZE')
+  peak = 0
+  with tempfile.TemporaryFile('w+') as out:
+    proc = subprocess.Popen(argv, cwd=REPO, stdout=out,
+                            stderr=subprocess.STDOUT, text=True)
+    deadline = time.perf_counter() + timeout
+    try:
+      while proc.poll() is None:
+        try:
+          with open(f'/proc/{proc.pid}/statm') as f:
+            peak = max(peak, int(f.read().split()[1]) * page)
+        except (OSError, IndexError, ValueError):
+          pass  # the process is exiting
+        if time.perf_counter() > deadline:
+          raise TimeoutError(f'{argv} ran over {timeout} s')
+        time.sleep(0.02)
+    finally:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out.seek(0)
+    return proc.returncode, out.read(), peak
+
+
+def phase_release_checkpoint(inference, model_config, splat_cuda, power):
+  """12 (a)-(c): a release-format checkpoint through the converter CLI,
+  served at full width."""
+  from se3ds_torch.models import folding
+  from se3ds_torch.models import generator as generator_lib
+  from se3ds_torch.train import checkpoints
+  from se3ds_torch.train import tf_bundle
+  import tempfile
+  log('== phase 12: a release-format TF checkpoint at full width (gen_dims '
+      '128, ResNet-101, 1024x512, bf16) ==')
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  root = tempfile.mkdtemp(prefix='release_', dir=BUILD_DIR)
+  try:
+    # (a) Seeded weights; every 1-D tensor (BatchNorm statistics and
+    # shifts, conv biases) drawn too, so no two layers hold equal values.
+    t0 = time.perf_counter()
+    with torch.device('cuda'):
+      source = generator_lib.ResNetGenerator(
+          gen_dims=128, resnet_version='101', spectral_fold=False)
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    folding.init_random_(source, gen)
+    with torch.no_grad():
+      for tensor in source.state_dict().values():
+        if tensor.dim() == 1:
+          tensor.uniform_(0.5, 1.5, generator=gen)
+    source = source.cpu()
+    arrays = release_bundle_arrays(source)
+    n_values = sum(v.size for v in arrays.values())
+    gb = sum(v.nbytes for v in arrays.values()) / 1e9
+    prefix = os.path.join(root, 'ckpt-1')
+    t1 = time.perf_counter()
+    tf_bundle.write_bundle(prefix, arrays)
+    write_s = time.perf_counter() - t1
+    del arrays
+    with open(os.path.join(root, 'checkpoint'), 'w') as f:
+      f.write('model_checkpoint_path: "ckpt-1"\n'
+              'all_model_checkpoint_paths: "ckpt-1"\n')
+    index_kb = os.path.getsize(prefix + '.index') / 1e3
+    log(f'  (a) the ema_generator as a release bundle: '
+        f'{len(source.state_dict())} tensors + save_counter, {n_values:,} values, {gb:.3f} GB, index '
+        f'{index_kb:.1f} kB; write_bundle {write_s:.2f} s '
+        f'({gb / write_s:.3f} GB/s), {time.perf_counter() - t0:.2f} s in all')
+
+    # (b) The user command, in its own process (a host job: no card).
+    served = os.path.join(root, 'converted.pt')
+    t0 = time.perf_counter()
+    code, output, peak = run_sampling_rss(
+        [sys.executable, '-m', 'se3ds_torch.convert_tf_checkpoint',
+         '--tf_ckpt', root, '--output', served], timeout=600)
+    convert_s = time.perf_counter() - t0
+    if code != 0:
+      raise AssertionError(f'convert_tf_checkpoint failed:\n{output[-4000:]}')
+    for line in output.splitlines():
+      log(f'  (b) {line}')
+    log(f'  (b) python -m se3ds_torch.convert_tf_checkpoint: {convert_s:.2f} s'
+        f' wall (interpreter start included), peak RSS {peak / 1e9:.2f} GB '
+        f'(sampled from /proc/<pid>/statm every 20 ms), {power}')
+
+    # (c) Served in bf16 from the converted file and from the source's own
+    # serving file.
+    reference = os.path.join(root, 'source.pt')
+    checkpoints.save_ema_generator(reference, source)
+    del source
+    models = []
+    for path in (served, reference):
+      t0 = time.perf_counter()
+      models.append(inference.SE3DSModel(
+          serving_config(model_config, ckpt_path=path), device='cuda'))
+      sync()
+      log(f'  (c) SE3DSModel(ckpt_path={os.path.basename(path)}) in '
+          f'{time.perf_counter() - t0:.2f} s')
+    weights = [m.model.state_dict() for m in models]
+    if weights[0].keys() != weights[1].keys() or not all(
+        torch.equal(weights[0][k], weights[1][k]) for k in weights[0]):
+      raise AssertionError('release checkpoint: the converted weights != the '
+                           'source\'s')
+    del weights
+    rgb, sem, depth = synthetic_pano(H, 12)
+    outs = []
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    try:
+      for model in models:
+        model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
+                            mask_blurred=True)
+        frames = []
+        for i in range(RELEASE_STEPS):
+          step = model(np.array([[0.25 * (i + 1), 0.1, 0.0]], np.float32),
+                       add_preds_to_memory=True)
+          frames += [x for x in step if x is not None]
+        outs.append(frames)
+      sync()
+    finally:
+      torch.backends.cudnn.deterministic = deterministic
+      torch.backends.cudnn.benchmark = benchmark
+    launches = splat_cuda.LAUNCHES
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(*outs) if a.numel())
+    if launches != 2 * RELEASE_STEPS * len(models) or not all(
+        torch.equal(a, b) for a, b in zip(*outs)):
+      raise AssertionError(f'release checkpoint: {launches} launches, or the '
+                           f'outputs differ (max |d| {err})')
+    log(f'  (c) the state dicts torch.equal; add_to_memory + {RELEASE_STEPS} '
+        f'feedback steps from each, every output torch.equal (max |d| {err}'
+        f', cuDNN deterministic), {launches} \'fast\' point passes')
+    return launches
+  finally:
+    shutil.rmtree(root)
+
+
+def phase_math_utils(power):
+  """12 (d): utils/math_utils on the card against the CPU."""
+  import importlib.util
+  from se3ds_torch.utils import math_utils
+  n, t, h, w, c = MATH_SIZES['iou']
+  g = torch.Generator().manual_seed(13)
+  labels = torch.randint(0, c, (n, t, h, w), generator=g)
+  truth = torch.where(torch.rand(n, t, h, w, generator=g) > 0.3, labels,
+                      torch.randint(0, c, (n, t, h, w), generator=g))
+  pred_1h = torch.nn.functional.one_hot(labels, c).float()
+  true_1h = torch.nn.functional.one_hot(truth, c).float()
+  mask = (torch.rand(n, t, generator=g) > 0.2).float()
+  spatial = (torch.rand(n, t, h, w, generator=g) > 0.1).float()
+  mu = torch.randn(4, h * w, generator=g)
+  logvar = torch.randn(4, h * w, generator=g)
+  mu2 = torch.randn(4, h * w, generator=g)
+  logvar2 = torch.randn(4, h * w, generator=g)
+  b, ih, iw = MATH_SIZES['inpaint']
+  image = torch.where(torch.rand(b, ih, iw, generator=g) > 0.95,
+                      torch.randint(1, 41, (b, ih, iw), generator=g), 0)
+  cases = {
+      'compute_sequence_iou': (math_utils.compute_sequence_iou,
+                               (pred_1h, true_1h, mask, spatial)),
+      'compute_sequence_accuracy': (math_utils.compute_sequence_accuracy,
+                                    (labels, truth, mask, spatial)),
+      'compute_kl': (math_utils.compute_kl, (mu, logvar, mu2, logvar2)),
+      'nearest_neighbor_inpaint': (math_utils.nearest_neighbor_inpaint,
+                                   (image,)),
+  }
+  for name, (fn, args) in cases.items():
+    cpu = fn(*args)
+    cuda = fn(*[a.cuda() for a in args])
+    sync()
+    cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+    cuda = cuda if isinstance(cuda, tuple) else (cuda,)
+    for i, (a, b) in enumerate(zip(cuda, cpu)):
+      a = a.cpu()
+      err = float((a.double() - b.double()).abs().max())
+      if name == 'compute_kl':
+        ok = torch.allclose(a, b, rtol=KL_RTOL, atol=KL_ATOL)
+        rule = f'rtol {KL_RTOL}, atol {KL_ATOL}'
+      elif a.dim() == 0:  # a mean over examples
+        ok = torch.allclose(a, b, rtol=MEAN_RTOL, atol=0)
+        rule = f'rtol {MEAN_RTOL}'
+      else:
+        ok, rule = torch.equal(a, b), 'torch.equal'
+      if not ok:
+        raise AssertionError(f'{name}[{i}]: card != CPU (max |d| {err})')
+      log(f'  (d) {name}[{i}] {tuple(a.shape)}: card vs CPU {rule}, max |d| '
+          f'{err}')
+  log(f'  (d) sizes: one-hots (N, T, H, W, C) = {MATH_SIZES["iou"]}, KL '
+      f'(4, {h * w}), inpaint (N, H, W) = {MATH_SIZES["inpaint"]} '
+      f'({ih * iw} pixels, a ({ih * iw}, {ih * iw}) distance table); '
+      f'{power}')
+  if importlib.util.find_spec('h5py') is None:
+    log('  (e) h5py is not installed on this machine: the Keras .h5 '
+        'InceptionV3 loader (eval/inception.load_keras_weights) is not run '
+        'here; convert the .h5 where h5py is installed with python -m '
+        'se3ds_torch.convert_inception (the CPU tests hold it to JAX)')
+  else:
+    log('  (e) h5py is installed here, but this phase does not run the .h5 '
+        'loader (no ImageNet .h5 in the repository; the CPU tests hold it '
+        'to JAX)')
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -2397,6 +2656,9 @@ def main():
   mesh_launches, mesh_err, split_ms = run('11bc', phase_mesh, inference,
                                           model_config, splat_cuda, geometry,
                                           power)
+  release_launches = run('12', phase_release_checkpoint, inference,
+                         model_config, splat_cuda, power)
+  run('12d', phase_math_utils, power)
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']
@@ -2411,7 +2673,8 @@ def main():
   fast_11 = mode_launches['fast'] + mesh_launches['fast']
   exact_11 = mode_launches['exact'] + mesh_launches['exact']
   log(f'splat_fast launches: {launches} in phase 4, {api_launches} in '
-      f'phase 9, {fast_11} in phase 11 (the kernels line counts all three)')
+      f'phase 9, {fast_11} in phase 11, {release_launches} in phase 12 (the '
+      'kernels line counts all four)')
   log(f'splat_exact launches: {exact_launches} in phase 6\'s rollout, '
       f'{cli_launches} in phase 8\'s TEST, {exact_11} in phase 11 (its split'
       ' passes one each; the kernels line counts phases 8 and 11)')
@@ -2430,7 +2693,7 @@ def main():
   log(json.dumps({'kernels': [{
       'name': 'splat_fast', 'route': 'cuda',
       'source': 'se3ds_torch/csrc/splat.cu', 'replaces': SPLAT_REPLACES,
-      'launches': launches + api_launches + fast_11,
+      'launches': launches + api_launches + fast_11 + release_launches,
       'max_abs_err': max(max_err, main_err, api_err, mesh_err),
       'ms': fast_ms, 'plain_ms': fast['plain'], 'bound_ms': fast['bound'],
       'bound_by': 'bytes', 'library_ms': None}, {

@@ -24,7 +24,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// crc32c (Castagnoli), software table.
+// crc32c (Castagnoli): the SSE4.2 instruction, else a software table.
 // ---------------------------------------------------------------------------
 
 uint32_t g_crc_table[256];
@@ -42,7 +42,28 @@ void InitCrcTable() {
   g_crc_init = true;
 }
 
+#if defined(__x86_64__)
+// The SSE4.2 crc32 instruction computes the same polynomial 8 bytes at a
+// time (a checkpoint bundle's gigabytes are checked through here).
+__attribute__((target("sse4.2")))
+uint32_t Crc32cSse42(const uint8_t* data, size_t n) {
+  uint64_t crc = 0xFFFFFFFFu;
+  for (; n >= 8; n -= 8, data += 8) {
+    uint64_t word;
+    std::memcpy(&word, data, 8);
+    crc = __builtin_ia32_crc32di(crc, word);
+  }
+  uint32_t c = static_cast<uint32_t>(crc);
+  for (; n > 0; --n, ++data) c = __builtin_ia32_crc32qi(c, *data);
+  return c ^ 0xFFFFFFFFu;
+}
+#endif
+
 uint32_t Crc32c(const uint8_t* data, size_t n) {
+#if defined(__x86_64__)
+  static const bool sse42 = __builtin_cpu_supports("sse4.2");
+  if (sse42) return Crc32cSse42(data, n);
+#endif
   if (!g_crc_init) InitCrcTable();
   uint32_t crc = 0xFFFFFFFFu;
   for (size_t i = 0; i < n; ++i) {

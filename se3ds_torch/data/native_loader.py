@@ -87,7 +87,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.se3ds_tfr_close.restype = None
     lib.se3ds_tfr_close.argtypes = [ctypes.c_void_p]
     lib.se3ds_crc32c.restype = ctypes.c_uint32
-    lib.se3ds_crc32c.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    lib.se3ds_crc32c.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
     lib.se3ds_decode_image_example.restype = ctypes.c_int
     lib.se3ds_decode_image_example.argtypes = (
         [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_uint32, ctypes.c_uint32]
@@ -102,11 +102,16 @@ def available() -> bool:
   return get_lib() is not None
 
 
-def crc32c(data: bytes) -> int:
-  """CRC-32C (Castagnoli) of `data`, as `tfrecord.crc32c` computes it."""
+def crc32c(data) -> int:
+  """CRC-32C (Castagnoli) of `data` (bytes, or a C-contiguous numpy array
+  read in place), as `tfrecord.crc32c` computes it."""
   lib = get_lib()
   if lib is None:
     raise RuntimeError('the native data loader is not available')
+  if isinstance(data, np.ndarray):
+    if not data.flags.c_contiguous:
+      raise ValueError('crc32c needs a C-contiguous array')
+    return lib.se3ds_crc32c(data.ctypes.data, data.nbytes)
   return lib.se3ds_crc32c(data, len(data))
 
 

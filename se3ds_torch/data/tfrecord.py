@@ -41,9 +41,13 @@ def crc32c(data: bytes, crc: int = 0) -> int:
   return crc ^ 0xFFFFFFFF
 
 
-def masked_crc32c(data: bytes) -> int:
-  crc = (native_loader.crc32c(data) if native_loader.available()
-         else crc32c(data))
+def masked_crc32c(data) -> int:
+  """The masked CRC-32C TensorFlow stores, of bytes or a C-contiguous
+  numpy array."""
+  if native_loader.available():
+    crc = native_loader.crc32c(data)
+  else:
+    crc = crc32c(data.tobytes() if hasattr(data, 'tobytes') else data)
   return ((((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF)
 
 

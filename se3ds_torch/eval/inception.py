@@ -11,9 +11,11 @@ package's variables one to one.
 Weights: `init_inception(generator)` gives deterministic random weights
 (FID and IS are then a consistent relative metric only);
 `inception_model`, the gin configurable the trainer's eval builds, gives
-them from a fixed seed or loads a saved state dict. The JAX package's
-Keras `.h5` loader is not ported (ROADMAP.md item A12); convert its
-variables with `torch_state_dict_from_flax_inception`.
+them from a fixed seed, loads a saved state dict, or converts a Keras
+`.h5` (the ImageNet bundle) through `load_keras_weights`, which needs
+h5py; `python -m se3ds_torch.convert_inception` converts one once into
+a state-dict file where h5py is installed. `torch_state_dict_from_flax_
+inception` carries the JAX package's variables across.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ POOL_DIM = 2048
 NUM_CLASSES = 1000
 BN_EPSILON = 1e-3
 INPUT_SIZE = 299
+
+# Inception V1 frozen-graph tensor endpoints; used by load_frozen_graph_v1.
+INCEPTION_V1_INPUT = 'Mul:0'
+INCEPTION_V1_OUTPUT = 'logits:0'
+INCEPTION_V1_FINAL_POOL = 'pool_3:0'
 
 
 class BatchNormNoScale(nn.Module):
@@ -232,25 +239,144 @@ def inception_model(version: str = 'V3',
   `inception_model`, its gin surface).
 
   checkpoint_path: None gives `init_inception` from seed 42 (a CPU
-  generator, so every device evaluates with the same weights); a file
-  written by `torch.save(model.state_dict())` loads. A Keras `.h5` raises
-  NotImplementedError: its loader needs h5py (ROADMAP.md item A12).
+  generator, so every device evaluates with the same weights); a Keras
+  `.h5` weights file converts through `load_keras_weights` (which needs
+  h5py, and raises ImportError without it: never random weights); any
+  other path is a file written by `torch.save(model.state_dict())`, as
+  `python -m se3ds_torch.convert_inception` writes one.
   """
   if version != 'V3':
     raise ValueError(f'{version} is not valid input.')
   if checkpoint_path is None:
     return init_inception(torch.Generator().manual_seed(42))
   if checkpoint_path.endswith('.h5'):
-    raise NotImplementedError(
-        'Loading Keras .h5 InceptionV3 weights needs h5py, which the port '
-        'does not use; convert the JAX package\'s variables with '
-        'torch_state_dict_from_flax_inception and torch.save them.')
+    state = load_keras_weights(checkpoint_path)
+  else:
+    state = torch.load(checkpoint_path, map_location='cpu',
+                       weights_only=True)
   with torch.device('meta'):
     model = InceptionV3()
   model.to_empty(device='cpu')
-  model.load_state_dict(torch.load(checkpoint_path, map_location='cpu',
-                                   weights_only=True))
+  model.load_state_dict(state)
   return model.eval().requires_grad_(False)
+
+
+def conv_module_order():
+  """ConvBN module names in graph order, matching the creation order of
+  conv2d_<k>/batch_normalization_<k> layers in Keras InceptionV3."""
+  names = ['conv0', 'conv1', 'conv2', 'conv3', 'conv4']
+  for i in range(3):  # mixed 0..2
+    names += [f'mixed{i}_b1x1', f'mixed{i}_b5a', f'mixed{i}_b5b',
+              f'mixed{i}_b3a', f'mixed{i}_b3b', f'mixed{i}_b3c',
+              f'mixed{i}_bp']
+  names += ['mixed3_b3', 'mixed3_bda', 'mixed3_bdb', 'mixed3_bdc']
+  for i in range(4, 8):
+    names += [f'mixed{i}_b1x1', f'mixed{i}_b7a', f'mixed{i}_b7b',
+              f'mixed{i}_b7c', f'mixed{i}_bda', f'mixed{i}_bdb',
+              f'mixed{i}_bdc', f'mixed{i}_bdd', f'mixed{i}_bde',
+              f'mixed{i}_bp']
+  names += ['mixed8_b3a', 'mixed8_b3b', 'mixed8_b7a', 'mixed8_b7b',
+            'mixed8_b7c', 'mixed8_b7d']
+  for i in (9, 10):
+    names += [f'mixed{i}_b1x1', f'mixed{i}_b3a', f'mixed{i}_b3b1',
+              f'mixed{i}_b3b2', f'mixed{i}_bda', f'mixed{i}_bdb',
+              f'mixed{i}_bdc1', f'mixed{i}_bdc2', f'mixed{i}_bp']
+  return names
+
+
+def load_keras_weights(h5_path: str) -> Dict[str, torch.Tensor]:
+  """The port's InceptionV3 state dict from a Keras InceptionV3 weights
+  `.h5` (the released ImageNet bundle
+  `inception_v3_weights_tf_dim_ordering_tf_kernels.h5`, a `save_weights`
+  file, or a whole-model save, whose weights sit under `model_weights/`).
+
+  Layers map by creation order: Keras names them conv2d[_k] and
+  batch_normalization[_k] in graph order (k sorted as a number), which is
+  `conv_module_order()`.
+
+  Raises:
+    ImportError: without h5py (convert the file where h5py is installed
+      with `python -m se3ds_torch.convert_inception`).
+    ValueError: a file without InceptionV3's 94 conv and BN layers.
+  """
+  try:
+    import h5py  # Conversion-time only: the card's machine has none.
+  except ImportError as e:
+    raise ImportError(
+        'Reading a Keras .h5 needs h5py, which is not installed here. '
+        'Convert the file once where h5py is installed: python -m '
+        'se3ds_torch.convert_inception --h5 <file>.h5 --out <file>.pt, and '
+        'pass the .pt as checkpoint_path.') from e
+
+  def keras_index(name: str, stem: str) -> int:
+    rest = name[len(stem):]
+    return int(rest[1:]) if rest.startswith('_') else 0
+
+  weights: dict = {}
+  with h5py.File(h5_path, 'r') as f:
+    root = f['model_weights'] if 'model_weights' in f else f
+
+    def visit(name, obj):
+      if isinstance(obj, h5py.Dataset):
+        weights[name] = np.asarray(obj)
+
+    root.visititems(visit)
+
+  def find(layer: str, leaf: str):
+    for name, arr in weights.items():
+      parts = name.split('/')
+      if layer in parts and parts[-1].split(':')[0] == leaf:
+        return arr
+    raise KeyError(f'{layer}/{leaf} not found in {h5_path}')
+
+  def layers(stem: str):
+    return sorted({n.split('/')[0] for n in weights
+                   if n.split('/')[0].startswith(stem)},
+                  key=lambda s: keras_index(s, stem))
+
+  conv_layers, bn_layers = layers('conv2d'), layers('batch_normalization')
+  order = conv_module_order()
+  if len(conv_layers) != len(order) or len(bn_layers) != len(order):
+    raise ValueError(
+        f'Expected {len(order)} conv/bn layers, found {len(conv_layers)}/'
+        f'{len(bn_layers)}')
+  params = {module: {'conv': {'kernel': find(conv, 'kernel')},
+                     'bn': {'bias': find(bn, 'beta')}}
+            for module, conv, bn in zip(order, conv_layers, bn_layers)}
+  batch_stats = {module: {'bn': {'mean': find(bn, 'moving_mean'),
+                                 'var': find(bn, 'moving_variance')}}
+                 for module, bn in zip(order, bn_layers)}
+  params['predictions'] = {'kernel': find('predictions', 'kernel'),
+                           'bias': find('predictions', 'bias')}
+  return torch_state_dict_from_flax_inception(
+      {'params': params, 'batch_stats': batch_stats})
+
+
+def load_frozen_graph_v1(pb_path: str):
+  """Inception V1 frozen-graph (.pb) loader, as the JAX package's: an
+  auxiliary loader that imports TensorFlow lazily (the reference's public
+  `inception_model` only builds 'V3', so V1 is dead surface there too).
+  Returns a host callable `images -> (pool_3 features, softmax
+  predictions)` pruned at the endpoints Mul:0 -> [pool_3:0, logits:0].
+  """
+  import tensorflow as tf  # This loader's reason to exist.
+
+  with tf.io.gfile.GFile(pb_path, 'rb') as f:
+    graph_def = tf.compat.v1.GraphDef.FromString(f.read())
+
+  def import_graph():
+    tf.compat.v1.import_graph_def(graph_def, name='')
+
+  wrapped = tf.compat.v1.wrap_function(import_graph, signature=[])
+  call_fn = wrapped.prune(INCEPTION_V1_INPUT,
+                          [INCEPTION_V1_FINAL_POOL, INCEPTION_V1_OUTPUT])
+
+  def forward(images):
+    pools, logits = call_fn(tf.convert_to_tensor(images))
+    preds = tf.nn.softmax(logits)
+    return np.squeeze(np.asarray(pools)), np.asarray(preds)
+
+  return forward
 
 
 def torch_state_dict_from_flax_inception(variables: Mapping[str, Any]

@@ -14,18 +14,23 @@ shards.
 `save_ema_generator` writes a generator's serving weights standalone;
 `restore_ema_generator` reads them back, or the EMA generator of a
 bundle, for `SE3DSModel(ckpt_path=...)`.
+
+`import_tf_checkpoint` maps a TF checkpoint bundle onto a model's state
+dict by a caller's name map (`train.tf_import` holds the released
+checkpoints' own grammar); the bundle is read without TensorFlow.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from se3ds_torch.models import folding
+from se3ds_torch.train import tf_bundle
 
 TRAIN_DONE = 'TRAIN_DONE'
 STATE_FILE = 'train_state.pt'
@@ -205,3 +210,44 @@ def mark_training_done(model_dir: str) -> None:
 
 def is_training_done(model_dir: str) -> bool:
   return os.path.exists(os.path.join(model_dir, TRAIN_DONE))
+
+
+# --- TF checkpoint import ---------------------------------------------------
+
+
+def import_tf_checkpoint(ckpt_path: str, model: nn.Module,
+                         name_map_fn: Optional[Callable[[str], str]] = None
+                         ) -> Dict[str, torch.Tensor]:
+  """Maps a TF checkpoint onto `model`'s state dict.
+
+  Args:
+    ckpt_path: the bundle's prefix.
+    model: the module whose state dict's names, shapes and dtypes are the
+      template.
+    name_map_fn: state-dict key -> TF variable name. The tensor is taken
+      as stored (no layout change) and cast to the template's dtype.
+
+  Returns:
+    The state dict with the checkpoint's tensors (on the CPU) where names
+    resolve; unresolved keys keep the template's tensors and are reported.
+
+  Raises:
+    ValueError: a resolved tensor whose shape is not the template's.
+  """
+  reader = tf_bundle.BundleReader(ckpt_path)
+  shapes = reader.get_variable_to_shape_map()
+  state, unresolved = {}, []
+  for name, template in model.state_dict().items():
+    tf_name = name_map_fn(name) if name_map_fn else None
+    if not tf_name or tf_name not in shapes:
+      unresolved.append(name)
+      state[name] = template
+      continue
+    arr = reader.get_tensor(tf_name)
+    if arr.shape != tuple(template.shape):
+      raise ValueError(f'{name}: {arr.shape} vs {tuple(template.shape)}')
+    state[name] = torch.from_numpy(arr).to(template.dtype)
+  if unresolved:
+    print(f'[import_tf_checkpoint] {len(unresolved)} unresolved leaves '
+          f'(kept template values), e.g. {unresolved[:5]}')
+  return state

@@ -9,6 +9,7 @@ refused weights; and the CLI's flags parse as the JAX `main.py`'s.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -115,7 +116,7 @@ def test_generator_from_gin_is_trainable_and_evaluates_as_folded(tmp_path):
   assert state.discriminator.__class__.__name__ == 'SNMultiScaleDiscriminator'
 
 
-def test_inception_model_weights(tmp_path):
+def test_inception_model_weights(tmp_path, monkeypatch):
   seeded = inception_t.inception_model()
   want = inception_t.init_inception(torch.Generator().manual_seed(42))
   for (name, a), b in zip(seeded.state_dict().items(),
@@ -127,8 +128,29 @@ def test_inception_model_weights(tmp_path):
   assert not loaded.training
   for a, b in zip(loaded.state_dict().values(), seeded.state_dict().values()):
     assert torch.equal(a, b)
-  with pytest.raises(NotImplementedError, match='h5py'):
-    inception_t.inception_model(checkpoint_path='weights.h5')
+  # A Keras .h5 of the same weights (Keras names and layouts) loads, and
+  # without h5py raises ImportError, never giving random weights.
+  import h5py
+  h5 = str(tmp_path / 'inception.h5')
+  state = seeded.state_dict()
+  with h5py.File(h5, 'w') as f:
+    for k, module in enumerate(inception_t.conv_module_order()):
+      conv, bn = [f'{stem}_{k}' if k else stem
+                  for stem in ('conv2d', 'batch_normalization')]
+      f[f'{conv}/{conv}/kernel:0'] = state[
+          f'{module}.conv.weight'].numpy().transpose(2, 3, 1, 0)
+      for leaf, name in (('beta', 'bias'), ('moving_mean', 'running_mean'),
+                         ('moving_variance', 'running_var')):
+        f[f'{bn}/{bn}/{leaf}:0'] = state[f'{module}.bn.{name}'].numpy()
+    f['predictions/predictions/kernel:0'] = state[
+        'predictions.weight'].numpy().T
+    f['predictions/predictions/bias:0'] = state['predictions.bias'].numpy()
+  from_h5 = inception_t.inception_model(checkpoint_path=h5)
+  for a, b in zip(from_h5.state_dict().values(), state.values()):
+    assert torch.equal(a, b)
+  monkeypatch.setitem(sys.modules, 'h5py', None)
+  with pytest.raises(ImportError, match='h5py'):
+    inception_t.inception_model(checkpoint_path=h5)
   with pytest.raises(ValueError):
     inception_t.inception_model(version='V4')
 

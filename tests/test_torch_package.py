@@ -58,7 +58,23 @@ def test_port_files_found():
           'se3ds_torch/parallel/mesh.py', 'se3ds_torch/utils/flops.py',
           'se3ds_torch/parallel/splat_shard.py',
           'se3ds_torch/models/spatial.py',
-          'se3ds_torch/profile_training.py', 'chip_smoke.py'} <= names
+          'se3ds_torch/profile_training.py', 'chip_smoke.py',
+          'se3ds_torch/train/tf_bundle.py', 'se3ds_torch/train/tf_import.py',
+          'se3ds_torch/convert_tf_checkpoint.py',
+          'se3ds_torch/convert_inception.py',
+          'se3ds_torch/utils/math_utils.py'} <= names
+
+
+@pytest.mark.parametrize('name', [
+    'se3ds_torch/train/tf_bundle.py', 'se3ds_torch/train/tf_import.py',
+    'se3ds_torch/train/checkpoints.py',
+    'se3ds_torch/convert_tf_checkpoint.py'])
+def test_checkpoint_import_needs_no_tensorflow(name):
+  """The TF checkpoint reader and converter run where the port runs,
+  which has neither TensorFlow nor h5py."""
+  tree = ast.parse((ROOT / name).read_text(), filename=name)
+  for module in _imported_modules(tree):
+    assert module.split('.')[0] not in ('tensorflow', 'h5py'), module
 
 
 def test_kernel_build_flags():
