@@ -72,7 +72,9 @@ Phases, in order; any failure raises and the process exits non-zero:
      display-batch rollout frame's guidance equal to the plain version.
   9. The serving API at full width, on phase 4's config; every splat
      stage on these paths is held against its plain version (torch.equal)
-     as it runs: (a) ring memory (memory_frames 8): add_to_memory, 11
+     as it runs, inside the captured graphs too (a key's second call
+     captures the check with the stage; a replay checks on the device):
+     (a) ring memory (memory_frames 8): add_to_memory, 11
      feedback steps (the write wraps at the 8th) and a predict_trajectory
      of 3, ms per step before and after the wrap, the memory buffers
      never reallocated; (b) predict_poses at K = 8 on a stride-0 memory
@@ -127,8 +129,26 @@ Phases, in order; any failure raises and the process exits non-zero:
      nearest-neighbour inpainting on the card against the CPU; (e) a line
      saying whether h5py is here (the `.h5` loader is not run). The
      bundle and the files are deleted after the phase.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+  13. The serving calls as captured CUDA graphs, on phase 4's config: a
+     model with cuda_graphs=False and one with the default (captured),
+     the same seeded weights and inputs, 5 passes in turns of
+     reset_memory, add_to_memory, 3 feedback steps, 2 read-only calls,
+     predict_trajectory T=3 and predict_poses K=8 (the first pass warms
+     each key up, the second captures, every later call replays): every
+     OutputData field torch.equal graph vs eager, and eager against its
+     own first pass; the launch counts; ms per warm step, per read-only
+     call, per trajectory frame and per pose, host CPU ms per call, each
+     key's capture seconds, the graphs and their pool's GiB; then
+     'pallas_exact' (the exact kernel's cooperative launch captured), 3
+     passes, torch.equal. A mode whose eager passes differ among
+     themselves (cuDNN's default algorithms summing in any order) is run
+     again with cuDNN's deterministic algorithms, where graph and eager
+     must be torch.equal.
+Phases 4, 9 and 11 serve through captured graphs by default (phase 11b's
+mesh model eagerly, as decided at its construction); a key's first call
+runs eagerly, so phases 4, 11 and 12, whose keys are each called once,
+replay few graphs. The line before the last is a JSON object with one
+entry per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 import copy
@@ -1442,30 +1462,64 @@ def phase_cli(splat_cuda, power):
   return launches, max_err, model_dir, root
 
 
+# Device accumulators of the splat-stage checks captured into CUDA graphs
+# (mismatching values, max |d|, stages checked). They live for the whole
+# run: a graph captured under one CheckedStage writes them at every
+# replay, under any later one.
+CAPTURED_CHECKS = {}
+
+
 class CheckedStage:
   """While active, every call of `geometry.project_memory_equirect` (the
   splat stage of the main path) is held against its plain version on the
   same inputs, torch.equal, at once (the memory is written in place by
   the next step). The comparisons' seconds are kept apart so that the
-  caller can take them off its step times; they launch no kernel."""
+  caller can take them off its step times; they launch no kernel.
+
+  A call made while a CUDA graph is captured (the second call of a
+  serving program's key) captures its check with it: the plain version
+  and the comparison then run on the device at every replay, into
+  CAPTURED_CHECKS, which `__exit__` reads (and raises on a mismatch). A
+  replayed step's time includes its checks."""
 
   def __init__(self, geometry):
     self.geometry = geometry
     self.stage = geometry.project_memory_equirect
     self.calls, self.max_err, self.check_s = 0, 0.0, 0.0
     self.strides = []
+    if not CAPTURED_CHECKS:
+      CAPTURED_CHECKS.update(
+          bad=torch.zeros((), dtype=torch.int64, device='cuda'),
+          err=torch.zeros((), dtype=torch.float32, device='cuda'),
+          calls=torch.zeros((), dtype=torch.int64, device='cuda'))
+
+  def _captured_check(self, out, want):
+    pairs = [(k, p) for k, p in zip(out, want)
+             if k is not None and k.numel()]
+    for k, p in pairs:
+      CAPTURED_CHECKS['bad'] += (k != p).sum()
+      CAPTURED_CHECKS['err'].copy_(torch.maximum(
+          CAPTURED_CHECKS['err'], (k - p).abs().max()))
+    CAPTURED_CHECKS['calls'] += 1
 
   def __enter__(self):
+    sync()
+    self.start = {k: int(v) for k, v in CAPTURED_CHECKS.items()
+                  if k != 'err'}
+
     def checked(feats, xyz1, offset, *args, **kwargs):
       out = self.stage(feats, xyz1, offset, *args, **kwargs)
+      plain_kwargs = {k: v for k, v in kwargs.items() if k != 'need_depth'}
+      plain = lambda: self.geometry.project_memory_equirect_plain(
+          feats, xyz1, offset, *args, **plain_kwargs)
+      self.strides.append((feats.stride(0), xyz1.stride(0), xyz1.shape[0]))
+      if torch.cuda.is_current_stream_capturing():
+        self._captured_check(out, plain())
+        return out
       sync()
       t0 = time.perf_counter()
-      plain_kwargs = {k: v for k, v in kwargs.items() if k != 'need_depth'}
-      want = self.geometry.project_memory_equirect_plain(
-          feats, xyz1, offset, *args, **plain_kwargs)
       self.max_err = max(self.max_err, equal_or_raise(
-          f'splat stage call {self.calls}', out, want))
-      self.strides.append((feats.stride(0), xyz1.stride(0), xyz1.shape[0]))
+          f'splat stage call {self.calls}', out, plain()))
       self.calls += 1
       self.check_s += time.perf_counter() - t0
       return out
@@ -1475,16 +1529,35 @@ class CheckedStage:
 
   def __exit__(self, *exc):
     self.geometry.project_memory_equirect = self.stage
+    if exc[0] is not None:
+      return
+    sync()
+    self.replayed = int(CAPTURED_CHECKS['calls']) - self.start['calls']
+    self.calls += self.replayed
+    self.max_err = max(self.max_err, float(CAPTURED_CHECKS['err']))
+    bad = int(CAPTURED_CHECKS['bad']) - self.start['bad']
+    if bad:
+      raise AssertionError(f'{bad} values of replayed splat stages differ '
+                           'from the plain version')
 
 
 def timed_call(check, fn):
-  """(result, ms of fn without the plain-version checks) after a sync."""
+  """(result, ms of fn without the plain-version checks made on the host
+  by `check`, a CheckedStage or None) after a sync."""
   sync()
-  before = check.check_s
+  before = check.check_s if check else 0.0
   t0 = time.perf_counter()
   out = fn()
   sync()
-  return out, ((time.perf_counter() - t0) - (check.check_s - before)) * 1e3
+  checks = (check.check_s - before) if check else 0.0
+  return out, ((time.perf_counter() - t0) - checks) * 1e3
+
+
+def drop_graphs(model, kind):
+  """Forgets the model's captured graphs of one entry point (their keys
+  stay warm): the next call of such a key captures it again."""
+  model.graphs.graphs = {k: v for k, v in model.graphs.graphs.items()
+                         if k[0][0] != kind}
 
 
 def smooth_image(height, width, seed):
@@ -1549,6 +1622,10 @@ def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
       copy=False)) != layout:
     raise AssertionError(f'ring: {check.calls} checked stages, or the memory '
                          'buffers were reallocated')
+  # Steps 4 and 6-11 replay graphs (the second call of a key captures).
+  if not model.graphs.replays or check.replayed != 2 * model.graphs.replays:
+    raise AssertionError(f'ring: {model.graphs.replays} replays, '
+                         f'{check.replayed} replayed stages checked')
   if (model._frames_written, model._total_frames) != (
       frames, 1 + served) or not torch.isfinite(traj.pred_depth).all():
     raise AssertionError('ring: frame counters or outputs wrong')
@@ -1559,9 +1636,11 @@ def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
       f'before the wrap (steps 2-{frames - 1}) {statistics.mean(before):.2f}'
       f', from the wrap on (steps {frames}-{RING_STEPS}) '
       f'{statistics.mean(after):.2f}; all steps '
-      f'{[round(m, 2) for m in step_ms]}; predict_trajectory '
-      f'T={RING_TRAJECTORY} {traj_ms:.2f} ms ({power})')
-  log(f'  (a) every one of {check.calls} splat stages torch.equal to '
+      f'{[round(m, 2) for m in step_ms]} (a replayed graph\'s time holds '
+      f'its in-graph checks); predict_trajectory T={RING_TRAJECTORY} '
+      f'{traj_ms:.2f} ms ({power})')
+  log(f'  (a) every one of {check.calls} splat stages ({check.replayed} in '
+      'replayed graphs, checked on the device) torch.equal to '
       'project_memory_equirect_plain on the card; memory buffers '
       f'{sum(n for _, n in layout) / 2**20:.1f} MiB, the same allocations '
       'before and after the wrap; device memory allocated '
@@ -1577,20 +1656,29 @@ def phase_poses(model, splat_cuda, geometry, power):
   poses[:, 2] *= 0.1
   before = [t.clone() for t in model.get_memory_state(copy=False)[:4]]
   model.predict_poses(poses)  # warm-up: cuDNN picks its batch-8 algorithms
+  model.predict_poses(poses)  # captures a graph without checks, replays it
+  pool = model.graphs.pool_bytes()
   torch.cuda.reset_peak_memory_stats()
   base = torch.cuda.memory_allocated()
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
-  with CheckedStage(geometry) as check:
-    out, poses_ms = timed_call(check, lambda: model.predict_poses(poses))
-  launches = splat_cuda.LAUNCHES
+  _, poses_ms = timed_call(None, lambda: model.predict_poses(poses))
   peak = torch.cuda.max_memory_allocated()
-  if launches != 2 or check.strides != [(0, 0, POSES_K)] * 2:
+  # Captured again with the splat stage's checks inside, and replayed; the
+  # later phases on this model replay this graph, checks included.
+  drop_graphs(model, 'poses')
+  with CheckedStage(geometry) as check:
+    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    out = model.predict_poses(poses)
+  launches = splat_cuda.LAUNCHES
+  if (launches != 2 or check.strides != [(0, 0, POSES_K)] * 2
+      or check.replayed != 2):
     raise AssertionError(f'predict_poses: {launches} launches, strides '
-                         f'{check.strides} (expected 2 at batch stride 0)')
+                         f'{check.strides} (expected 2 at batch stride 0), '
+                         f'{check.replayed} replayed stages checked')
   model(poses[:1])  # warm-up at batch 1
+  model(poses[:1])  # captures, without checks
   singles, single_ms = [], []
   for p in poses:
-    one, ms = timed_call(check, lambda: model(p[None]))
+    one, ms = timed_call(None, lambda: model(p[None]))
     singles.append(one)
     single_ms.append(ms)
   for key in ('proj_rgb', 'proj_semantic', 'proj_depth', 'proj_mask'):
@@ -1616,9 +1704,11 @@ def phase_poses(model, splat_cuda, geometry, power):
   log(f'  (b) {poses_ms / POSES_K:.2f} ms per pose at K={POSES_K} '
       f'({poses_ms:.2f} ms the call) against '
       f'{statistics.median(single_ms):.2f} ms per __call__ (median of '
-      f'{POSES_K}); peak device memory {peak / 2**30:.2f} GiB '
-      f'({(peak - base) / 2**30:.2f} GiB above the model and its memory) '
-      f'({power})')
+      f'{POSES_K}), each a replay of a graph captured without the checks; '
+      f'the model\'s graph pool {pool / 2**30:.2f} GiB after the K={POSES_K} '
+      f'capture; peak device memory over the replay {peak / 2**30:.2f} GiB '
+      f'({(peak - base) / 2**30:.2f} GiB above what was allocated before '
+      f'it) ({power})')
   return launches, check.max_err
 
 
@@ -1639,7 +1729,8 @@ def phase_perturbation(model, splat_cuda, geometry, power, depth):
                          'launches')
   log(f'  (c) sample_perturbed_views: {len(views)} views in {chunks} '
       f'predict_poses chunks of {POSES_K}, {ms / len(views):.2f} ms per view '
-      f'({ms:.2f} ms in all; splat stages == plain) ({power})')
+      f'({ms:.2f} ms in all, replays of (b)\'s graph with its in-graph '
+      f'checks; {check.calls} splat stages == plain) ({power})')
   return launches, check.max_err
 
 
@@ -2165,6 +2256,9 @@ def phase_mesh(inference, model_config, splat_cuda, geometry, power):
             serving_config(model_config, splat_mode=mode), device='cuda',
             generator=torch.Generator(device='cuda').manual_seed(0),
             **kwargs)
+        if mode == MESH_MODES[0]:
+          log(f'  {name}: ' + (f'runs eagerly ({model.uncaptured})'
+                               if model.uncaptured else 'replays graphs'))
         model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
         # Warm-up at batch 8 and 1 (cuDNN's set-up); no memory write.
         model.predict_poses(poses)
@@ -2589,6 +2683,182 @@ def phase_math_utils(power):
         'to JAX)')
 
 
+# -- phase 13: the serving calls as captured CUDA graphs ---------------------
+
+GRAPH_PASSES, GRAPH_TIMED, GRAPH_CHECK_PASSES = 5, 3, 3
+GRAPH_TRAJECTORY = np.array([[1.0, 0.1 * t, 0.0] for t in range(3)],
+                            np.float32)
+# Forwards (each two splats) and calls per pass of `graph_sequence`.
+GRAPH_FORWARDS, GRAPH_CALLS = 3 + 2 + len(GRAPH_TRAJECTORY) + 1, 8
+
+
+def graph_sequence(model, pano, poses, timing):
+  """One pass: reset_memory, add_to_memory, 3 feedback steps, 2 read-only
+  calls, predict_trajectory T=3 and predict_poses K=8. Returns the
+  (call, OutputData) pairs; appends (wall ms, host CPU ms, host ms) per
+  call to `timing[call]`: the wall time to the synchronise after it, the
+  calling thread's CPU time and the wall time until the call returned."""
+  outs = []
+
+  def call(name, fn):
+    sync()
+    t0, cpu0 = time.perf_counter(), time.thread_time()
+    out = fn()
+    returned, cpu = time.perf_counter(), time.thread_time()
+    sync()
+    timing.setdefault(name, []).append(
+        ((time.perf_counter() - t0) * 1e3, (cpu - cpu0) * 1e3,
+         (returned - t0) * 1e3))
+    if out is not None:
+      outs.append((name, out))
+
+  model.reset_memory()
+  call('add', lambda: model.add_to_memory(*pano, np.zeros((1, 3),
+                                                          np.float32)))
+  for i in range(3):
+    call('step', lambda: model(
+        np.array([[0.25 * (i + 1), 0.1, 0.0]], np.float32),
+        add_preds_to_memory=True))
+  for i in range(2):
+    call('read', lambda: model(np.array([[0.4, 0.1 * i, 0.0]], np.float32)))
+  call('trajectory', lambda: model.predict_trajectory(GRAPH_TRAJECTORY))
+  call('poses', lambda: model.predict_poses(poses))
+  return outs
+
+
+def differing_values(a_outs, b_outs):
+  """Values that differ between two passes' OutputData, per field."""
+  diff = {}
+  for (name, a), (_, b) in zip(a_outs, b_outs):
+    for field in a._fields:
+      x, y = getattr(a, field), getattr(b, field)
+      if x is not None:
+        diff[field] = diff.get(field, 0) + int((x != y).sum())
+  return {k: v for k, v in diff.items() if v}
+
+
+def graph_passes(models, pano, poses, passes, timed=0):
+  """`passes` passes of graph_sequence on each model, in turns; returns
+  (outputs per model, timing per model of the last `timed` passes)."""
+  outs = {name: [] for name in models}
+  timing = {name: {} for name in models}
+  for p in range(passes):
+    order = list(models) if p % 2 == 0 else list(models)[::-1]
+    for name in order:
+      t = timing[name] if p >= passes - timed else {}
+      outs[name].append(graph_sequence(models[name], pano, poses, t))
+  return outs, timing
+
+
+def phase_graphs(inference, model_config, splat_cuda, power):
+  """13: the serving calls of one model replayed from captured CUDA
+  graphs against an eager model with the same seeded weights and inputs,
+  on phase 4's config: every OutputData field torch.equal, 'fast' then
+  'pallas_exact'; ms per warm step, per trajectory frame and per pose,
+  host CPU ms per step, each key's capture seconds, the graphs and their
+  pool."""
+  from se3ds_torch.models import graphs as graphs_lib
+  log('== phase 13: the serving calls as captured CUDA graphs against '
+      'eager, phase 4\'s config (1024x512, gen_dims 128, ResNet-101, bf16) '
+      '==')
+  models = {name: inference.SE3DSModel(
+      serving_config(model_config), device='cuda',
+      generator=torch.Generator(device='cuda').manual_seed(0),
+      cuda_graphs=name == 'graph') for name in ('eager', 'graph')}
+  eager, graph = models['eager'], models['graph']
+  weights = [m.model.state_dict() for m in (eager, graph)]
+  if not all(torch.equal(weights[0][k], weights[1][k]) for k in weights[0]):
+    raise AssertionError('the two models\' seeded weights differ')
+  log(f'  eager model: {eager.uncaptured}; graph model: every entry point '
+      f'captured ({graph.uncaptured}); a model with mesh= runs eagerly '
+      '(decided at construction: NCCL capture is a later slice); every '
+      'splat mode captures (tests/test_torch_cuda.py)')
+  pano = synthetic_pano(H, 0)
+  poses = np.random.RandomState(5).uniform(-0.8, 0.8, (POSES_K, 3)).astype(
+      np.float32) * np.array([1, 1, 0.1], np.float32)
+
+  def check(mode, outs, passes, deterministic):
+    fast = splat_cuda.LAUNCHES
+    exact = splat_cuda.EXACT_LAUNCHES
+    want = 2 * 2 * GRAPH_FORWARDS * passes
+    if (fast, exact) != ((want, 0) if mode == 'fast' else (0, want)):
+      raise AssertionError(f'{mode}: launches (fast, exact) {(fast, exact)};'
+                           f' expected {want} of its kernel')
+    against = [differing_values(a, b)
+               for a, b in zip(outs['eager'], outs['graph'])]
+    repeat = [differing_values(outs['eager'][0], b)
+              for b in outs['eager'][1:]]
+    log(f'  {mode} (cuDNN {"deterministic" if deterministic else "defaults"}'
+        f', {passes} passes of add + 3 steps + 2 reads + trajectory T='
+        f'{len(GRAPH_TRAJECTORY)} + poses K={POSES_K}): values differing '
+        f'graph vs eager per pass {against}; eager pass 1 vs later passes '
+        f'{repeat}; {fast + exact} {mode} point passes, kernel launches '
+        f'counted through the replays ({power})')
+    return any(against), any(repeat), fast, exact
+
+  # (a) 'fast' under cuDNN's defaults, timed.
+  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  outs, timing = graph_passes(models, pano, poses, GRAPH_PASSES,
+                              GRAPH_TIMED)
+  replays = graph.graphs.replays
+  if replays != 1 + GRAPH_CALLS * (GRAPH_PASSES - 1):
+    raise AssertionError(f'{replays} replays: every call after the first '
+                         'of its key should replay')
+  apart, eager_apart, fast, _ = check('fast', outs, GRAPH_PASSES, False)
+  launches = {'fast': fast, 'exact': 0}
+  resolution = time.get_clock_info('thread_time').resolution * 1e3
+  for name in models:
+    t = timing[name]
+    med = lambda call, i=0: statistics.median(v[i] for v in t[call])
+    # The thread clock may tick coarsely: its mean over the calls.
+    cpu = lambda call: statistics.mean(v[1] for v in t[call])
+    frames = len(GRAPH_TRAJECTORY)
+    log(f'  {name}: ms per warm step {med("step"):.2f} (median of '
+        f'{len(t["step"])}; the call returns after {med("step", 2):.2f}, '
+        f'host CPU {cpu("step"):.2f} ms a step, mean); read-only call '
+        f'{med("read"):.2f} ms (host CPU {cpu("read"):.2f}); add_to_memory '
+        f'{med("add"):.2f} ms; per trajectory frame '
+        f'{med("trajectory") / frames:.2f} ms (host CPU '
+        f'{cpu("trajectory") / frames:.2f}); per pose '
+        f'{med("poses") / POSES_K:.2f} ms at K={POSES_K} (host CPU '
+        f'{cpu("poses") / POSES_K:.2f}); thread clock resolution '
+        f'{resolution:.3g} ms ({power})')
+  programs = graph.graphs
+  log(f'  graph model: {len(programs.graphs)} graphs, {replays} replays, '
+      f'pool {programs.pool_bytes() / 2**30:.3f} GiB; capture s per key: '
+      + ', '.join(f'{k[0][:-2]} {v:.3f}' for k, v in
+                  programs.capture_s.items()) + f' ({power})')
+  if apart and not eager_apart:
+    raise AssertionError('graph != eager under cuDNN defaults, while the '
+                         'eager model repeats its own bits')
+
+  # (b) 'pallas_exact' (the exact kernel's cooperative launch captured);
+  # (c) a mode whose eager runs differ from each other (cuDNN's default
+  # algorithms summing in any order) again with deterministic ones.
+  runs = [('pallas_exact', False)] + ([('fast', True)] if apart else [])
+  for mode, deterministic in runs:
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+      for model in models.values():
+        model.config = dataclasses.replace(model.config, splat_mode=mode)
+      graph.graphs = graphs_lib.Programs()  # captured anew for the mode
+      splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+      outs, _ = graph_passes(models, pano, poses, GRAPH_CHECK_PASSES)
+      mode_apart, mode_eager_apart, fast, exact = check(
+          mode, outs, GRAPH_CHECK_PASSES, deterministic)
+      launches['fast'] += fast
+      launches['exact'] += exact
+      if mode_apart and (deterministic or not mode_eager_apart):
+        raise AssertionError(f'{mode}: graph != eager')
+      if mode_apart:
+        runs.append((mode, True))
+    finally:
+      torch.backends.cudnn.deterministic = False
+  del models, eager, graph, programs
+  torch.cuda.empty_cache()
+  return launches
+
+
 def main():
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device; this script runs on the card.',
@@ -2659,6 +2929,8 @@ def main():
   release_launches = run('12', phase_release_checkpoint, inference,
                          model_config, splat_cuda, power)
   run('12d', phase_math_utils, power)
+  graph_launches = run('13', phase_graphs, inference, model_config,
+                       splat_cuda, power)
   # A kernel's time: its point pass(es) and its resolve, on the device.
   fast_ms = fast['point'] + fast['resolve']
   exact_ms = exact['point'] + exact['resolve']
@@ -2673,11 +2945,13 @@ def main():
   fast_11 = mode_launches['fast'] + mesh_launches['fast']
   exact_11 = mode_launches['exact'] + mesh_launches['exact']
   log(f'splat_fast launches: {launches} in phase 4, {api_launches} in '
-      f'phase 9, {fast_11} in phase 11, {release_launches} in phase 12 (the '
-      'kernels line counts all four)')
+      f'phase 9, {fast_11} in phase 11, {release_launches} in phase 12, '
+      f'{graph_launches["fast"]} in phase 13 (the kernels line counts all '
+      'five)')
   log(f'splat_exact launches: {exact_launches} in phase 6\'s rollout, '
       f'{cli_launches} in phase 8\'s TEST, {exact_11} in phase 11 (its split'
-      ' passes one each; the kernels line counts phases 8 and 11)')
+      f' passes one each), {graph_launches["exact"]} in phase 13 (the kernels'
+      ' line counts phases 8, 11 and 13)')
   log('splat stage per served frame by mode (phase 11a, device ms): '
       + ', '.join(f'{k} {v:.4f}' for k, v in mode_ms.items()))
   mesh_stage_ms = split_ms.pop('mesh stage')
@@ -2693,13 +2967,15 @@ def main():
   log(json.dumps({'kernels': [{
       'name': 'splat_fast', 'route': 'cuda',
       'source': 'se3ds_torch/csrc/splat.cu', 'replaces': SPLAT_REPLACES,
-      'launches': launches + api_launches + fast_11 + release_launches,
+      'launches': (launches + api_launches + fast_11 + release_launches
+                   + graph_launches['fast']),
       'max_abs_err': max(max_err, main_err, api_err, mesh_err),
       'ms': fast_ms, 'plain_ms': fast['plain'], 'bound_ms': fast['bound'],
       'bound_by': 'bytes', 'library_ms': None}, {
           'name': 'splat_exact', 'route': 'cuda',
           'source': 'se3ds_torch/csrc/splat_exact.cu',
-          'replaces': EXACT_REPLACES, 'launches': cli_launches + exact_11,
+          'replaces': EXACT_REPLACES,
+          'launches': cli_launches + exact_11 + graph_launches['exact'],
           'max_abs_err': max(exact_err, rollout_err, cli_err, mode_err,
                              mesh_err),
           'ms': exact_ms,

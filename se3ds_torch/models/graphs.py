@@ -1,0 +1,129 @@
+"""Captured serving programs: one CUDA graph per key.
+
+The PyTorch counterpart of the JAX package's compiled variants of the
+serving API (`jax.jit` with static arguments,
+se3ds_tpu/models/inference.py:441-457). `SE3DSModel` runs each call as
+`Programs.run(key, fn, inputs)`:
+
+- the first call of a key runs `fn(*inputs)` eagerly on the caller's
+  stream. It is the warm-up: the kernels' nvcc builds, the lazy loads of
+  their libraries, cuDNN's handles and algorithm choices all happen
+  outside a capture;
+- the second call captures `fn` into a `torch.cuda.CUDAGraph` on a side
+  stream (nothing runs while it is captured), then replays it;
+- every later call copies its inputs into the graph's static inputs and
+  replays.
+
+`fn` reads its inputs and state that lives at fixed addresses outside
+the pool (the model's memory buffers and previous frame, which it
+updates in place), and returns a dict of tensors. A replay overwrites
+the graph's output tensors, so `run` returns copies of them: nothing a
+caller holds changes at the next call.
+
+Every graph of one `Programs` is captured into one memory pool. That is
+safe because nothing in the pool is read across a replay of another
+graph: state and static inputs live outside it, and outputs are copied
+out right after their replay. A failed capture or replay raises; there
+is no eager fallback.
+
+The kernels' launch counters (`splat_cuda.LAUNCHES`, `EXACT_LAUNCHES`)
+are Python integers that move only when a wrapper runs, so they move
+while a graph is captured and not when it replays. `run` takes a
+graph's count at capture back out and adds it at each replay: the
+counters count the point passes that ran.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable, Dict, Hashable, NamedTuple, Sequence, Tuple
+
+import torch
+
+from se3ds_torch.ops import splat_cuda
+
+
+def _launch_counts() -> Tuple[int, int]:
+  """(splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES)."""
+  return splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+
+
+def _set_launch_counts(counts: Tuple[int, int]) -> None:
+  splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+
+
+class _Graph(NamedTuple):
+  graph: Any
+  inputs: Tuple[torch.Tensor, ...]
+  outputs: Dict[str, torch.Tensor]
+  launches: Tuple[int, int]
+
+
+class Programs:
+  """One captured graph per key, all in one memory pool.
+
+  Args:
+    capture: the capture context, `torch.cuda.graph` (a test passes a
+      stand-in to count captures on the CPU).
+    new_graph: makes an empty graph, `torch.cuda.CUDAGraph`.
+    pool: the shared pool, default a new `torch.cuda.graph_pool_handle()`.
+  """
+
+  def __init__(self, capture: Callable = None, new_graph: Callable = None,
+               pool=None):
+    self._capture = capture or torch.cuda.graph
+    self._new_graph = new_graph or torch.cuda.CUDAGraph
+    self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
+    self.warmed = set()  # keys run once eagerly
+    self.graphs: Dict[Hashable, _Graph] = {}
+    self.capture_s: Dict[Hashable, float] = {}  # seconds to capture a key
+    self.replays = 0
+
+  @staticmethod
+  def key(name: Hashable, inputs: Sequence[torch.Tensor]) -> Tuple:
+    """`name` with the inputs' shapes and dtypes: a graph replays one
+    signature, as `jax.jit` compiles one per signature."""
+    return (name,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+
+  def run(self, name: Hashable, fn: Callable[..., Dict[str, torch.Tensor]],
+          inputs: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`fn(*inputs)` as the program of `name` (see the module doc)."""
+    key = self.key(name, inputs)
+    entry = self.graphs.get(key)
+    if entry is None:
+      if key not in self.warmed:
+        out = fn(*inputs)
+        self.warmed.add(key)
+        return out
+      entry = self._capture_graph(key, fn, inputs)
+    else:
+      for static, x in zip(entry.inputs, inputs):
+        static.copy_(x)
+    entry.graph.replay()
+    self.replays += 1
+    _set_launch_counts(tuple(
+        a + b for a, b in zip(_launch_counts(), entry.launches)))
+    return {k: v.clone() for k, v in entry.outputs.items()}
+
+  def _capture_graph(self, key, fn, inputs) -> _Graph:
+    # The graph reads its own copies: a caller's tensor may change later.
+    static = tuple(x.clone() for x in inputs)
+    graph = self._new_graph()
+    before = _launch_counts()
+    start = time.perf_counter()
+    try:
+      with self._capture(graph, pool=self.pool):
+        outputs = fn(*static)
+      launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+    finally:
+      _set_launch_counts(before)  # nothing ran while it was captured
+    self.capture_s[key] = time.perf_counter() - start
+    entry = _Graph(graph, static, outputs, launched)
+    self.graphs[key] = entry
+    return entry
+
+  def pool_bytes(self) -> int:
+    """Bytes the CUDA caching allocator holds in this pool's segments."""
+    pool = tuple(self.pool)
+    return sum(s['total_size'] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get('segment_pool_id', ())) == pool)

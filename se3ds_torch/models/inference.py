@@ -5,7 +5,19 @@ memory_frames * H * W points) with a write cursor. Every frame writes
 exactly H*W semantic slots (fewer RGB slots with pole compaction);
 invalid points keep their void feature value, which the splat skips.
 Unlike the JAX package, which returns new buffers, the port writes the
-memory buffers in place; `get_memory_state()` copies them by default.
+memory buffers and the previous frame in place, at addresses fixed for
+the life of the model; `get_memory_state()` copies them by default.
+
+How it runs. On a CUDA device each entry point is one captured CUDA
+graph per key, as each is one compiled program in the JAX package
+(`SE3DSModel` lists the keys; `models/graphs.py` captures and replays):
+`add_to_memory`, `__call__` with and without `add_preds_to_memory`,
+`predict_trajectory` (all T frames in one graph, no host step between
+them) and `predict_poses`. The first call of a key runs eagerly, as do
+every call on the CPU, a model built with `cuda_graphs=False` and a
+model with a `mesh` (its collectives are not captured). The host keeps
+the frame counters and the per-slot semantic bookkeeping, between
+calls.
 
 Everything of the JAX API is here: strict and ring memory, the fused
 trajectory, `predict_poses`, `.ply` export, restoring a checkpoint, every
@@ -30,6 +42,7 @@ from se3ds_torch import constants
 from se3ds_torch import device as device_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
+from se3ds_torch.models import graphs
 from se3ds_torch.models import model_config
 from se3ds_torch.models import spatial
 from se3ds_torch.ops import geometry
@@ -121,7 +134,7 @@ def memory_add_pano(memory: MemoryState,
                     depth_scale: float,
                     mask_blurred: bool = True,
                     pole_compact: bool = False,
-                    write_slot: Optional[int] = None) -> MemoryState:
+                    *, write_slot) -> None:
   """Unprojects an RGB-D pano and writes it into the memory, in place.
 
   Args:
@@ -135,11 +148,10 @@ def memory_add_pano(memory: MemoryState,
     pole_compact: Drop the blanked pole rows from the RGB cloud (requires
       mask_blurred=True and a memory laid out with `pole_valid_rows(H)`
       rows per frame).
-    write_slot: FRAME slot to write; defaults to the one after the cursor.
-
-  Returns:
-    The memory state with the cursor advanced by H*W (saturating at
-    capacity).
+    write_slot: FRAME slot to write: an int, or a 0-dim int64 tensor on
+      the memory's device (what a captured CUDA graph reads). Its bounds
+      and the cursor are the caller's (`SE3DSModel` knows the slot on the
+      host and advances the cursor).
   """
   if pole_compact and not mask_blurred:
     raise ValueError(
@@ -173,20 +185,16 @@ def memory_add_pano(memory: MemoryState,
 
   num_new = xyz1.shape[-1]
   rgb_new = rgb_xyz1.shape[-1]
-  cap = memory.coords.shape[-1]
-  rgb_cap = memory.rgb_coords.shape[-1]
-  if write_slot is None:
-    write_slot = memory.cursor // num_new
-  cur = write_slot * num_new
-  rgb_cur = write_slot * rgb_new
-  if cur + num_new > cap or rgb_cur + rgb_new > rgb_cap:
-    raise ValueError(f'Frame slot {write_slot} ({num_new}/{rgb_new} points)'
-                     f' exceeds memory capacity {cap}/{rgb_cap}.')
-  memory.coords[:, :, cur:cur + num_new] = xyz1
-  memory.feats[:, cur:cur + num_new] = feats[..., None].to(torch.float32)
-  memory.rgb_coords[:, :, rgb_cur:rgb_cur + rgb_new] = rgb_xyz1
-  memory.rgb[:, rgb_cur:rgb_cur + rgb_new] = rgb_feats.to(torch.float32)
-  return memory._replace(cursor=min(max(memory.cursor, cur + num_new), cap))
+  batch = memory.coords.shape[0]
+  slot = torch.as_tensor(write_slot, dtype=torch.int64, device=xyz1.device)
+  index = slot * num_new + torch.arange(num_new, device=xyz1.device)
+  rgb_index = slot * rgb_new + torch.arange(rgb_new, device=xyz1.device)
+  memory.coords.index_copy_(2, index, xyz1.expand(batch, -1, -1))
+  memory.feats.index_copy_(1, index, feats[..., None].to(
+      torch.float32).expand(batch, -1, -1))
+  memory.rgb_coords.index_copy_(2, rgb_index, rgb_xyz1.expand(batch, -1, -1))
+  memory.rgb.index_copy_(1, rgb_index, rgb_feats.to(torch.float32).expand(
+      batch, -1, -1))
 
 
 def _proj_mask(proj_depth: torch.Tensor, proj_rgb: torch.Tensor
@@ -257,6 +265,35 @@ class SE3DSModel:
 
   Runs on the card by default; pass `device='cpu'` to run the plain
   PyTorch versions of the kernels on the CPU.
+
+  On a CUDA device every entry point (`add_to_memory`, `__call__` with
+  and without `add_preds_to_memory`, `predict_trajectory`,
+  `predict_poses`) replays a captured CUDA graph, one per key, as the JAX
+  package runs one compiled program per static-argument variant
+  (`models/graphs.py`; the first call of a key runs eagerly and warms
+  up, the second captures). The keys:
+
+  - `add_to_memory`: `mask_blurred`;
+  - `__call__`: the frame bucket and the semantic bucket (the live
+    extents rounded up to powers of two, capped at `memory_frames`: the
+    extra slots are void and the splat skips them);
+  - `__call__(add_preds_to_memory=True)`: the same and
+    `use_projected_rgb`; the write slot is a device scalar, so it adds
+    no graphs;
+  - `predict_trajectory`: T, the frames written before it and the exact
+    semantic extent; all T frames are one graph, the start slot a device
+    scalar;
+  - `predict_poses`: K, the frame bucket and the semantic bucket;
+
+  and each also by its inputs' shapes and dtypes and the config's
+  `splat_mode` and `project_semantics`. With L frame buckets (1, 2, 4,
+  ... and `memory_frames`: ceil(log2(memory_frames)) + 1), a model holds
+  at most L(L+1)/2 read-only `__call__` graphs (the semantic bucket never
+  exceeds the frame bucket) and L(L+1) step graphs per input signature,
+  in strict and in ring mode; after a ring wrap the frame bucket stays
+  `memory_frames`, so new keys add at most L read-only and 2L step
+  graphs. In the usual flow (one `add_to_memory`, then predictions) the
+  semantic bucket stays 1: L read-only and 2L step graphs at most.
   """
 
   _LEAN_KEYS = ('proj_semantic_u8', 'pred_semantic_u8', 'proj_rgb_u8',
@@ -265,7 +302,8 @@ class SE3DSModel:
 
   def __init__(self, config: model_config.SE3DSConfig, variables=None,
                device=None, generator: Optional[torch.Generator] = None,
-               mesh=None, mesh_axis: str = 'data'):
+               mesh=None, mesh_axis: str = 'data',
+               cuda_graphs: bool = True):
     """Args:
 
     config: the model configuration.
@@ -291,6 +329,13 @@ class SE3DSModel:
     as in the JAX package, and any other mode raises ValueError); with a
     'spatial' size above 1 the generator's rows spread over the 'spatial'
     ranks (`models.spatial`). Every rank returns the same whole outputs.
+
+    cuda_graphs: whether calls replay captured CUDA graphs (see the
+      class doc). True captures where the model can: on a CUDA device and
+      without a `mesh` (its collectives are a later slice); the CPU and a
+      mesh run eagerly. False runs eagerly on the card too, which is what
+      it is for: running the eager and the captured model side by side.
+      `uncaptured` says why a model runs eagerly.
     """
     self.device = device_lib.resolve(device, 'SE3DSModel')
     if config.batch_size < 1:
@@ -317,6 +362,18 @@ class SE3DSModel:
       sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
       if sizes.get('spatial', 1) > 1:
         self._rows = spatial.Rows(mesh.get_group('spatial'))
+    # Why calls run eagerly (None when they replay captured graphs).
+    if self.device.type != 'cuda':
+      self.uncaptured = 'the CPU runs eagerly'
+    elif mesh is not None:
+      self.uncaptured = ('a mesh: its collectives are not captured (a later '
+                         'slice)')
+    elif not cuda_graphs:
+      self.uncaptured = 'cuda_graphs=False'
+    else:
+      self.uncaptured = None
+    # The captured programs (`graphs.Programs`); None runs eagerly.
+    self.graphs = graphs.Programs() if self.uncaptured is None else None
     # Ring mode: writes past capacity wrap onto the oldest frame's slots
     # instead of raising (SE3DSConfig.memory_mode).
     self._ring = config.memory_mode == 'ring'
@@ -357,14 +414,27 @@ class SE3DSModel:
       if param.dim() == 4:
         param.data = param.data.to(dtype)
     self.model.eval().requires_grad_(False)
-    self.prev_rgb_frame = None
+    # The state every call reads lives at fixed addresses for the life of
+    # the model (a captured graph replays them): the memory buffers and
+    # the previous frame are written in place, never rebound.
+    self._memory = init_memory(self.batch_size, self.capacity,
+                               self.rgb_capacity, device=self.device)
+    self.prev_rgb_frame = torch.zeros(
+        (self.batch_size, self.height, self.width, 3), dtype=torch.float32,
+        device=self.device)
+    self._has_prev_frame = False
     self.reset_memory()
 
   # -- memory management ----------------------------------------------------
 
   def reset_memory(self):
-    self._memory = init_memory(self.batch_size, self.capacity,
-                               self.rgb_capacity, device=self.device)
+    """Empties the memory, in place."""
+    memory = self._memory
+    memory.coords.zero_()
+    memory.feats.fill_(float(constants.INVALID_SEM_VALUE))
+    memory.rgb_coords.zero_()
+    memory.rgb.fill_(float(constants.INVALID_RGB_VALUE))
+    self._memory = memory._replace(cursor=0)
     # _frames_written = VALID frames (the live splat extent, <=
     # memory_frames); _total_frames = frames ever written (drives the ring
     # write slot). Equal until the first ring wrap.
@@ -388,6 +458,14 @@ class SE3DSModel:
     self._frames_written = min(self.config.memory_frames,
                                self._frames_written + new_frames)
 
+  def _wrote(self, slot: int, real_semantics: bool):
+    """The host's bookkeeping of one frame written at `slot`."""
+    frame_points = self.height * self.width
+    self._memory = self._memory._replace(cursor=min(
+        max(self._memory.cursor, (slot + 1) * frame_points), self.capacity))
+    self._sem_real[slot] = real_semantics
+    self._count_frames()
+
   def get_memory_state(self, copy: bool = True) -> MemoryState:
     """The current memory; `copy=False` returns the live buffers, which
     later mutating calls overwrite in place."""
@@ -398,17 +476,23 @@ class SE3DSModel:
            if k != 'cursor'})
 
   def set_memory_state(self, state: MemoryState):
+    """Copies `state` into the memory buffers (same layout: batch size,
+    capacity and pole_compact)."""
     if state.rgb_coords.shape[-1] != self.rgb_capacity:
       raise ValueError(
           f'MemoryState RGB capacity {state.rgb_coords.shape[-1]} does not '
           f"match this model's layout ({self.rgb_capacity}; "
           f'pole_compact={self.config.pole_compact}).')
-    self._memory = MemoryState(
-        coords=self._tensor(state.coords).clone(),
-        feats=self._tensor(state.feats).clone(),
-        rgb_coords=self._tensor(state.rgb_coords).clone(),
-        rgb=self._tensor(state.rgb).clone(),
-        cursor=int(state.cursor))
+    fields = ('coords', 'feats', 'rgb_coords', 'rgb')
+    for name in fields:
+      got = tuple(getattr(state, name).shape)
+      want = tuple(getattr(self._memory, name).shape)
+      if got != want:
+        raise ValueError(f'MemoryState.{name} has shape {got}; this model '
+                         f'holds {want}.')
+    for name in fields:
+      getattr(self._memory, name).copy_(self._tensor(getattr(state, name)))
+    self._memory = self._memory._replace(cursor=int(state.cursor))
     # The cursor counts VALID slots, so a ring-wrapped state restores as
     # full, and later ring writes start over at slot 0 (slot 0 is the
     # oldest frame by convention after a restore).
@@ -456,28 +540,71 @@ class SE3DSModel:
           f' = {self.capacity} points). Increase'
           ' SE3DSConfig.memory_frames or call reset_memory().')
 
+  def _check_has_prev_frame(self):
+    if not self._has_prev_frame:
+      raise ValueError('add_to_memory must be called before predicting.')
+
   def _tensor(self, x, dtype=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+  def _slot(self, slot: int) -> torch.Tensor:
+    """A frame slot as the 0-dim device tensor the programs read."""
+    if not 0 <= slot < self.config.memory_frames:
+      raise ValueError(f'Frame slot {slot} is outside the memory '
+                       f'({self.config.memory_frames} frames).')
+    return torch.full((), slot, dtype=torch.int64, device=self.device)
+
+  def _run(self, name: Tuple, fn, inputs) -> Dict[str, torch.Tensor]:
+    """`fn(*inputs)`: eagerly, or as the captured program of `name`."""
+    if self.graphs is None:
+      return fn(*inputs)
+    name = name + (self.config.splat_mode, self.config.project_semantics)
+    return self.graphs.run(name, fn, inputs)
 
   @torch.no_grad()
   def add_to_memory(self, pano_rgb, pano_semantic, pano_depth, position,
                     mask_blurred: bool = True):
     """Adds an equirectangular observation to memory."""
     self._check_memory_capacity()
-    pano_rgb = self._tensor(pano_rgb)
-    self.prev_rgb_frame = (pano_rgb / device_lib.divisor(255.0, pano_rgb)
-                           ).to(torch.float32)
     slot = self._next_write_slot()
-    self._memory = memory_add_pano(
-        self._memory, pano_rgb, self._tensor(pano_semantic),
-        self._tensor(pano_depth, torch.float32),
-        self._tensor(position, torch.float32), self.depth_scale,
-        mask_blurred=mask_blurred, pole_compact=self.config.pole_compact,
-        write_slot=slot)
-    self._sem_real[slot] = True
-    self._count_frames()
+    self._run(('add', mask_blurred),
+              functools.partial(self._add_program, mask_blurred=mask_blurred),
+              (self._tensor(pano_rgb), self._tensor(pano_semantic),
+               self._tensor(pano_depth, torch.float32),
+               self._tensor(position, torch.float32), self._slot(slot)))
+    self._has_prev_frame = True
+    self._wrote(slot, real_semantics=True)
+
+  def _add_program(self, pano_rgb, pano_semantic, pano_depth, position, slot,
+                   *, mask_blurred: bool):
+    self.prev_rgb_frame.copy_(
+        (pano_rgb / device_lib.divisor(255.0, pano_rgb)).to(torch.float32))
+    memory_add_pano(
+        self._memory, pano_rgb, pano_semantic, pano_depth, position,
+        self.depth_scale, mask_blurred=mask_blurred,
+        pole_compact=self.config.pole_compact, write_slot=slot)
+    return {}
 
   # -- forward --------------------------------------------------------------
+
+  @staticmethod
+  def _pow2_bucket(n: int) -> int:
+    """Next power of two >= n: bounds the programs at log2 instead of
+    linear (the JAX package's bucket)."""
+    return 1 << max(0, n - 1).bit_length()
+
+  def _frame_bucket(self) -> int:
+    """The frame extent the read and step programs splat: any extent >=
+    the frames written is exact (the extra slots are void and the splat
+    skips them)."""
+    return min(self._pow2_bucket(max(1, self._frames_written)),
+               self.config.memory_frames)
+
+  def _sem_bucket(self) -> int:
+    """The semantic extent, bucketed as `_frame_bucket`: any extent >=
+    the real-semantics extent is exact."""
+    return min(self._pow2_bucket(max(1, self._sem_frames_live())),
+               self.config.memory_frames)
 
   @staticmethod
   def _to_output_data(out: Dict[str, torch.Tensor]) -> OutputData:
@@ -560,18 +687,19 @@ class SE3DSModel:
     return out
 
   def _step_forward(self, memory: MemoryState, prev_rgb_frame, position,
-                    write_slot: int, num_frames: int,
+                    write_slot, num_frames: int,
                     use_projected_rgb: bool = False,
                     sem_frames: Optional[int] = None):
-    """One feedback frame: splat -> generate -> unproject -> memory write.
+    """One feedback frame: splat -> generate -> unproject -> memory write
+    (in place, at the frame slot `write_slot`).
 
-    Returns (lean output dict, new memory, new prev_rgb_frame).
+    Returns (lean output dict, new prev_rgb_frame).
     """
     out = self._forward(memory, prev_rgb_frame, position,
                         num_frames=num_frames, feed=True,
                         sem_frames=sem_frames)
     # The memory feed is always the generator's raw outputs.
-    new_memory = memory_add_pano(
+    memory_add_pano(
         memory, out['pc_rgb'], out['pred_semantic'][..., None],
         out['pred_depth'], position, depth_scale=self.depth_scale,
         mask_blurred=True, pole_compact=self.config.pole_compact,
@@ -587,14 +715,41 @@ class SE3DSModel:
       pc_rgb = torch.clamp(out['pc_rgb'], 0, 255)
       new_prev = (pc_rgb / device_lib.divisor(255.0, pc_rgb)).to(
           torch.float32)
-    return lean, new_memory, new_prev
+    return lean, new_prev
+
+  def _step_program(self, position, slot, *, num_frames: int,
+                    sem_frames: int, use_projected_rgb: bool = False):
+    """A feedback frame on the model's own state."""
+    lean, new_prev = self._step_forward(
+        self._memory, self.prev_rgb_frame, position, slot,
+        num_frames=num_frames, use_projected_rgb=use_projected_rgb,
+        sem_frames=sem_frames)
+    self.prev_rgb_frame.copy_(new_prev)
+    return lean
+
+  def _trajectory_program(self, positions, start_slot, *, start_frames: int,
+                          sem_frames: int):
+    """T feedback frames in one program: frame t's memory write and
+    previous frame are on the device when frame t+1 reads them."""
+    cap = self.config.memory_frames
+    per_frame = [
+        self._step_program(positions[t], (start_slot + t) % cap,
+                           num_frames=max(1, min(start_frames + t, cap)),
+                           sem_frames=sem_frames)
+        for t in range(positions.shape[0])]
+    return {k: torch.stack([f[k] for f in per_frame])
+            for k in self._LEAN_KEYS}
 
   @torch.no_grad()
   def predict_trajectory(self, positions) -> OutputData:
-    """Autoregressively predicts T frames, one `_step_forward` each.
+    """Autoregressively predicts T frames in one program.
 
     Equal, bit for bit, to calling `self(position,
-    add_preds_to_memory=True)` for each position in turn.
+    add_preds_to_memory=True)` for each position in turn. On the card all
+    T frames (splat -> generate -> unproject -> memory write each) are
+    one captured graph: no host step between frames, and the memory
+    feedback never leaves the device. The frame counters and the
+    semantic bookkeeping advance on the host after it.
 
     Args:
       positions: (T, 3) or (T, N, 3) world positions, one per frame.
@@ -613,8 +768,7 @@ class SE3DSModel:
     num_frames = positions.shape[0]
     if num_frames < 1:
       raise ValueError('positions must contain at least one frame.')
-    if self.prev_rgb_frame is None:
-      raise ValueError('add_to_memory must be called before predicting.')
+    self._check_has_prev_frame()
     cap = self.config.memory_frames
     if not self._ring and self._frames_written + num_frames > cap:
       raise ValueError(
@@ -624,23 +778,28 @@ class SE3DSModel:
           "memory_mode='ring' for unbounded streaming.")
     start_slot = self._next_write_slot()
     start_frames = self._frames_written
-    # The semantic extent from before the trajectory: predicted frames
-    # only ever turn slots void, so it bounds every frame inside it, even
-    # across a ring wrap onto real slots.
-    sem_frames = self._sem_frames_live()
-    per_frame = []
+    # The exact semantic extent from before the trajectory: predicted
+    # frames only ever turn slots void, so it bounds every frame inside
+    # it, even across a ring wrap onto real slots.
+    sem_frames = min(max(1, self._sem_frames_live()), cap)
+    out = self._run(
+        ('trajectory', start_frames, sem_frames),
+        functools.partial(self._trajectory_program,
+                          start_frames=start_frames, sem_frames=sem_frames),
+        (positions, self._slot(start_slot)))
     for t in range(num_frames):
-      slot = (start_slot + t) % cap
-      lean, self._memory, self.prev_rgb_frame = self._step_forward(
-          self._memory, self.prev_rgb_frame, positions[t], write_slot=slot,
-          num_frames=max(1, min(start_frames + t, cap)),
-          sem_frames=sem_frames)
-      per_frame.append(lean)
-      self._sem_real[slot] = False
-      self._count_frames()
-    stacked = {k: torch.stack([f[k] for f in per_frame])
-               for k in self._LEAN_KEYS}
-    return self._to_output_data(stacked)
+      self._wrote((start_slot + t) % cap, real_semantics=False)
+    return self._to_output_data(out)
+
+  def _poses_program(self, positions, *, num_frames: int, sem_frames: int):
+    k = positions.shape[0]
+    bcast = lambda x: x.expand((k,) + x.shape[1:])
+    memory = self._memory._replace(
+        coords=bcast(self._memory.coords), feats=bcast(self._memory.feats),
+        rgb_coords=bcast(self._memory.rgb_coords),
+        rgb=bcast(self._memory.rgb))
+    return self._forward(memory, bcast(self.prev_rgb_frame), positions,
+                         num_frames=num_frames, sem_frames=sem_frames)
 
   @torch.no_grad()
   def predict_poses(self, positions) -> OutputData:
@@ -666,20 +825,19 @@ class SE3DSModel:
     if positions.dim() != 2 or positions.shape[-1] != 3:
       raise ValueError(
           f'positions must be (K, 3), got {tuple(positions.shape)}.')
-    k = positions.shape[0]
-    if k < 1:
+    if positions.shape[0] < 1:
       raise ValueError('positions must contain at least one pose.')
-    if self.prev_rgb_frame is None:
-      raise ValueError('add_to_memory must be called before predicting.')
-    bcast = lambda x: x.expand((k,) + x.shape[1:])
-    memory = self._memory._replace(
-        coords=bcast(self._memory.coords), feats=bcast(self._memory.feats),
-        rgb_coords=bcast(self._memory.rgb_coords),
-        rgb=bcast(self._memory.rgb))
-    out = self._forward(memory, bcast(self.prev_rgb_frame), positions,
-                        num_frames=max(1, self._frames_written),
-                        sem_frames=self._sem_frames_live())
+    self._check_has_prev_frame()
+    num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
+    out = self._run(
+        ('poses', num_frames, sem_frames),
+        functools.partial(self._poses_program, num_frames=num_frames,
+                          sem_frames=sem_frames), (positions,))
     return self._to_output_data(out)
+
+  def _call_program(self, position, *, num_frames: int, sem_frames: int):
+    return self._forward(self._memory, self.prev_rgb_frame, position,
+                         num_frames=num_frames, sem_frames=sem_frames)
 
   @torch.no_grad()
   def __call__(self, position, add_preds_to_memory: bool = False,
@@ -692,20 +850,21 @@ class SE3DSModel:
     """
     del sample_noise, z
     position = self._tensor(position, torch.float32)
-    if self.prev_rgb_frame is None:
-      raise ValueError('add_to_memory must be called before predicting.')
-    num_frames = max(1, self._frames_written)
-    sem_frames = self._sem_frames_live()
+    self._check_has_prev_frame()
+    num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
     if add_preds_to_memory:
       self._check_memory_capacity()
       slot = self._next_write_slot()
-      out, self._memory, self.prev_rgb_frame = self._step_forward(
-          self._memory, self.prev_rgb_frame, position, slot,
-          num_frames=num_frames, use_projected_rgb=use_projected_rgb,
-          sem_frames=sem_frames)
-      self._sem_real[slot] = False  # predicted semantics are all void
-      self._count_frames()
+      out = self._run(
+          ('step', num_frames, sem_frames, use_projected_rgb),
+          functools.partial(self._step_program, num_frames=num_frames,
+                            sem_frames=sem_frames,
+                            use_projected_rgb=use_projected_rgb),
+          (position, self._slot(slot)))
+      self._wrote(slot, real_semantics=False)  # predicted: all void
       return self._to_output_data(out)
-    out = self._forward(self._memory, self.prev_rgb_frame, position,
-                        num_frames=num_frames, sem_frames=sem_frames)
+    out = self._run(
+        ('call', num_frames, sem_frames),
+        functools.partial(self._call_program, num_frames=num_frames,
+                          sem_frames=sem_frames), (position,))
     return self._to_output_data(out)

@@ -39,7 +39,6 @@ import contextlib
 import threading
 from typing import Callable, Iterable, Optional, Tuple, Union
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.distributed.nn.functional as dist_nn
@@ -146,8 +145,7 @@ def wrap_width(x: torch.Tensor, margin: int) -> torch.Tensor:
   if margin <= width:
     return torch.cat([x[..., -margin:], x, x[..., :margin]], dim=-1)
   # Margin wider than the pano itself (tiny shapes): mod-index gather.
-  idx = torch.as_tensor(np.arange(-margin, width + margin) % width,
-                        device=x.device)
+  idx = torch.arange(-margin, width + margin, device=x.device) % width
   return x.index_select(-1, idx)
 
 

@@ -225,15 +225,17 @@ def _linspace_f32(start: float, stop: float, num: int,
 
   jnp.linspace computes `start * (1 - t) + stop * t` with `t = i / (num -
   1)` in float32 and sets the last element to `stop` exactly.
+  Computed on `device` by float32 ops that each round once (numpy's
+  bits): no host copy, so a captured CUDA graph can hold it.
   """
-  start32, stop32 = np.float32(start), np.float32(stop)
+  start32, stop32 = float(np.float32(start)), float(np.float32(stop))
   if num == 1:
-    out = np.array([start32], np.float32)
-  else:
-    t = np.arange(num, dtype=np.float32) / np.float32(num - 1)
-    out = (start32 * (np.float32(1) - t) + stop32 * t).astype(np.float32)
-    out[-1] = stop32
-  return torch.from_numpy(out).to(device)
+    return torch.full((1,), start32, dtype=torch.float32, device=device)
+  t = torch.arange(num, dtype=torch.float32, device=device)
+  t = t / device_lib.divisor(num - 1, t)
+  out = start32 * (1 - t) + stop32 * t
+  out[-1:].fill_(stop32)
+  return out
 
 
 def equirectangular_to_pointcloud(

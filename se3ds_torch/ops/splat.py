@@ -559,6 +559,10 @@ def _check_bytes(feats: torch.Tensor, valid: torch.Tensor) -> None:
   are integers in [0, 255] (the JAX package's debug trap)."""
   if os.environ.get('SE3DS_DEBUG_SPLAT', '0') != '1':
     return
+  if feats.is_cuda and torch.cuda.is_current_stream_capturing():
+    raise RuntimeError(
+        'SE3DS_DEBUG_SPLAT=1 reads the features back to the host, which a '
+        'captured CUDA graph cannot do; serve with cuda_graphs=False.')
   bad = valid[..., None] & ((feats != torch.round(feats)) | (feats < 0)
                             | (feats > 255))
   if bool(bad.any()):

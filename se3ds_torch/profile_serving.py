@@ -1,17 +1,22 @@
 """Where a served frame's time goes on the card (PyTorch profiler).
 
-    python -m se3ds_torch.profile_serving [--frames 2] [--top 15]
+    python -m se3ds_torch.profile_serving [--frames 2] [--top 15] [--eager]
 
 Builds the full-width serving model (1024x512, gen_dims=128, ResNet-101,
-bf16, random weights from seed 0), adds one synthetic pano, warms up
-with two `add_preds_to_memory=True` frames, then profiles `--frames`
-more. Prints the device time by kernel (top `--top`), the device
-operations (kernels, memsets, copies) per frame, the splat stage's
-device span (everything `inference.memory_project` runs: both splats
-from the world memory to the guidance images, and the mask) and the
-'fast' splat kernels' share, and the device's idle share of the profiled wall
-time, with the card's name and power limit. Needs a CUDA card. Run as a
-file with PYTHONPATH=<tree> it profiles that tree's `se3ds_torch`.
+bf16, random weights from seed 0) with a ring memory of RING_FRAMES
+frames, adds one synthetic pano, warms up with `add_preds_to_memory=True`
+frames until every step splats the whole ring (one program key) and that
+key has been captured, then profiles `--frames` more. By default the
+steps replay the model's captured CUDA graph; `--eager` builds the model
+with `cuda_graphs=False` and profiles the same steps run op by op.
+Prints the device time by kernel (top `--top`), the device operations
+(kernels, memsets, copies) per frame, the splat stage's device span
+(everything `inference.memory_project` runs: both splats from the world
+memory to the guidance images, and the mask; eager only, since a replay
+runs no Python) and the 'fast' splat kernels' share, and the device's
+idle share of the profiled wall time, with the card's name and power
+limit. Needs a CUDA card. Run as a file with PYTHONPATH=<tree> it
+profiles that tree's `se3ds_torch`.
 """
 
 import argparse
@@ -24,6 +29,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from se3ds_torch.models import inference
 from se3ds_torch.models import model_config
+
+# A ring memory: after RING_FRAMES + 1 warm-up steps every step has the
+# same key (the whole ring splatted) and replays its captured graph.
+RING_FRAMES = 4
 
 
 def _pano(height):
@@ -42,6 +51,9 @@ def main():
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument('--frames', type=int, default=2)
   parser.add_argument('--top', type=int, default=15)
+  parser.add_argument('--eager', action='store_true',
+                      help='run the steps op by op (cuda_graphs=False) '
+                      'instead of replaying their captured graph')
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit('profile_serving needs a CUDA card.')
@@ -50,10 +62,11 @@ def main():
       capture_output=True, text=True, check=True, timeout=60).stdout.strip()
   cfg = model_config.SE3DSConfig(
       ckpt_path=None, image_height=512, gen_dims=128, resnet_version='101',
-      compute_dtype='bfloat16', memory_frames=3 + 2 * args.frames,
-      splat_mode='fast')
+      compute_dtype='bfloat16', memory_frames=RING_FRAMES,
+      memory_mode='ring', splat_mode='fast')
   model = inference.SE3DSModel(
-      cfg, generator=torch.Generator(device='cuda').manual_seed(0))
+      cfg, generator=torch.Generator(device='cuda').manual_seed(0),
+      cuda_graphs=not args.eager)
   model.add_to_memory(*_pano(512), np.zeros((1, 3), np.float32))
   memory_project = inference.memory_project
 
@@ -64,15 +77,17 @@ def main():
   inference.memory_project = splat_stage
   step = lambda i: model(np.array([[0.2 * (i + 1), 0.1, 0.0]], np.float32),
                          add_preds_to_memory=True)
-  for i in range(2):
+  warmup = RING_FRAMES + 1
+  for i in range(warmup):
     step(i)
   torch.cuda.synchronize()
+  replays = model.graphs.replays if model.graphs else 0
 
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for i in range(args.frames):
-      step(2 + i)
+      step(warmup + i)
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
 
@@ -90,13 +105,19 @@ def main():
   events.sort(key=lambda e: e.self_device_time_total, reverse=True)
   device_us = sum(e.self_device_time_total for e in events)
   print(power)
+  if model.graphs:
+    print(f'graph replays: {model.graphs.replays - replays} of the '
+          f'{args.frames} profiled steps ({len(model.graphs.graphs)} graphs '
+          'captured)')
+  else:
+    print(f'eager: {model.uncaptured}')
   if not events:
     # The profiler saw no device activity: time the frames with events.
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(args.frames):
-      step(2 + args.frames + i)
+      step(warmup + args.frames + i)
     end.record()
     end.synchronize()
     print(f'profiler recorded no device time; CUDA events: '
@@ -116,6 +137,9 @@ def main():
     print(f'splat stage (memory_project): device span '
           f'{stage_us / 1e3 / args.frames:.4f} ms/frame, share '
           f'{stage_us / device_us:.5f}')
+  elif model.graphs:
+    print('splat stage (memory_project): not measured (a replay runs no '
+          'Python, so no range); the splat kernels below')
   else:
     print('splat stage (memory_project): the profiler kept no device-side '
           'row of the range; time it with se3ds_torch/splat_stage.py')

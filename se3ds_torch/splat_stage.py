@@ -58,7 +58,7 @@ def _memory(batch, frames, pole_compact):
                                  device=torch.device('cuda'))
   for f in range(frames):
     position = torch.tensor([[0.3 * f, 0.1, 0.0]] * batch, device='cuda')
-    memory = inference.memory_add_pano(
+    inference.memory_add_pano(
         memory, *_pano(f, batch), position, constants.DEPTH_SCALE,
         mask_blurred=True, pole_compact=pole_compact, write_slot=f)
   return memory

@@ -487,8 +487,11 @@ def test_ring_steps_across_the_wrap_equal_the_plain_splat(card, monkeypatch):
   """Ring memory of 3 frames: one real frame, 4 feedback steps (the write
   wraps at the third) and a trajectory of 2; every splat torch.equal to
   its plain version."""
+  # The recording stage runs in Python, which a replayed graph does not:
+  # this holds the eager path, and test_graph_serving_equals_eager holds
+  # the graphs to it.
   model = inference.SE3DSModel(dataclasses.replace(
-      model_config.get_test_config(), memory_mode='ring'))
+      model_config.get_test_config(), memory_mode='ring'), cuda_graphs=False)
   rs = np.random.RandomState(1)
   model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
                       rs.randint(0, 42, (1, 32, 64, 1)),
@@ -510,7 +513,8 @@ def test_predict_poses_on_a_stride_0_memory_equals_the_plain_splat(
     card, monkeypatch):
   """K = 4 poses read the memory at batch stride 0; the guidance equals
   the plain version's and K single calls'."""
-  model = inference.SE3DSModel(model_config.get_test_config())
+  model = inference.SE3DSModel(model_config.get_test_config(),
+                               cuda_graphs=False)  # as the ring test
   rs = np.random.RandomState(2)
   model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
                       rs.randint(0, 42, (1, 32, 64, 1)),
@@ -534,7 +538,7 @@ def test_re10k_cloud_equals_the_plain_splat(card, monkeypatch):
   cfg = dataclasses.replace(model_config.get_re10k_config(), ckpt_path=None,
                             image_height=32, gen_dims=4,
                             resnet_version='tiny', memory_frames=3)
-  model = inference.SE3DSModel(cfg)
+  model = inference.SE3DSModel(cfg, cuda_graphs=False)  # as the ring test
   rs = np.random.RandomState(3)
   fov = torch.tensor([0.8, 0.8], device=card)
   rgb = geometry.project_perspective_image(
@@ -630,3 +634,137 @@ def test_sharded_splat_at_world_one_equals_the_unsharded(card, mode,
       assert all(torch.equal(a, b) for a, b in zip(got, want)), channels
   finally:
     dist.destroy_process_group()
+
+
+# -- the serving API as captured CUDA graphs ---------------------------------
+
+
+def _serve(model, rs_seed=4, passes=2, pano=None, mask_blurred=True):
+  """add_to_memory, 3 feedback steps, 2 read-only calls, a trajectory of
+  2 and 2 poses, `passes` times from an emptied memory (a graph model
+  warms each key up in the first pass and replays it after); every
+  OutputData."""
+  rs = np.random.RandomState(rs_seed)
+  if pano is None:
+    pano = (rs.randint(0, 256, (1, 32, 64, 3)),
+            rs.randint(0, 42, (1, 32, 64, 1)),
+            rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32))
+  outs = []
+  for _ in range(passes):
+    model.reset_memory()
+    model.add_to_memory(*pano, np.zeros((1, 3), np.float32),
+                        mask_blurred=mask_blurred)
+    for i in range(3):
+      outs.append(model(np.array([[0.2 * i, 0.05, 0]], np.float32),
+                        add_preds_to_memory=True))
+    for i in range(2):
+      outs.append(model(np.array([[0.1, 0.1 * i, 0]], np.float32)))
+    outs.append(model.predict_trajectory(
+        np.array([[0.5, 0, 0], [0.6, 0.1, 0]], np.float32)))
+    outs.append(model.predict_poses(
+        np.array([[0.3, 0.1, 0], [-0.2, 0.2, 0]], np.float32)))
+  return outs
+
+
+def _re10k_pano(card):
+  """A pano warped on the card from a random perspective source, as the
+  RE10K flow writes it (no semantics)."""
+  rs = np.random.RandomState(3)
+  fov = torch.tensor([0.8, 0.8], device=card)
+  rgb = geometry.project_perspective_image(
+      torch.from_numpy(rs.rand(32, 32, 3).astype(np.float32) * 255).to(card),
+      fov, 32, pad_value=-1.0)
+  depth = geometry.project_perspective_image(
+      torch.from_numpy(rs.uniform(0.1, 0.5, (32, 32, 1)).astype(
+          np.float32)).to(card), fov, 32)[..., 0]
+  return (torch.clamp(rgb, 0, 255).int()[None],
+          torch.zeros((1, 32, 64, 1), dtype=torch.int32, device=card),
+          torch.clamp(depth, 0, 1)[None])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config,mode', [('test', m) for m in
+                                         geometry.SPLAT_MODES]
+                         + [('re10k', 'fast')])
+def test_graph_serving_equals_eager(card, config, mode):
+  """In every splat mode, and on the RE10K config's perspective path,
+  every entry point replayed from a captured graph gives the eager
+  model's bits (torch.equal), and the launch counters count the replays'
+  point passes (the exact modes' cooperative launch is captured too)."""
+  serve = _serve
+  if config == 're10k':
+    cfg = dataclasses.replace(model_config.get_re10k_config(),
+                              ckpt_path=None, image_height=32, gen_dims=4,
+                              resnet_version='tiny', memory_frames=8)
+    pano = _re10k_pano(card)
+    serve = lambda m: _serve(m, pano=pano, mask_blurred=False)
+  else:
+    cfg = dataclasses.replace(model_config.get_test_config(),
+                              memory_frames=8, splat_mode=mode)
+  eager = inference.SE3DSModel(cfg, cuda_graphs=False)
+  graph = inference.SE3DSModel(cfg)
+  graph.model.load_state_dict(eager.model.state_dict())
+  assert eager.graphs is None and graph.uncaptured is None
+  launches = []
+  for model in (eager, graph):
+    before = splat_cuda.LAUNCHES + splat_cuda.EXACT_LAUNCHES
+    outs = serve(model)
+    launches.append(splat_cuda.LAUNCHES + splat_cuda.EXACT_LAUNCHES - before)
+    model.outs = outs
+  kernel = mode in geometry._SPLATS and geometry._SPLATS[mode][0]
+  assert launches[0] == launches[1] == (2 * 2 * (3 + 2 + 2 + 1) if kernel
+                                        else 0)
+  assert graph.graphs.replays >= 8 and len(graph.graphs.graphs) >= 6
+  for a, b in zip(eager.outs, graph.outs):
+    _outputs_equal(a, b)
+
+
+def _outputs_equal(a, b):
+  for x, y in zip(a, b):
+    if x is not None:
+      assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_replayed_outputs_are_fresh(card):
+  """A replay overwrites the graph's outputs, never what a caller holds."""
+  model = inference.SE3DSModel(dataclasses.replace(
+      model_config.get_test_config(), memory_frames=8))
+  outs = _serve(model, passes=1)
+  kept = [[t.clone() for t in o if t is not None] for o in outs]
+  _serve(model, passes=2)
+  for o, k in zip(outs, kept):
+    _outputs_equal([t for t in o if t is not None], k)
+
+
+@pytest.mark.cuda
+def test_debug_splat_refuses_a_capture(card, monkeypatch):
+  """SE3DS_DEBUG_SPLAT's byte check reads back to the host: under a
+  capture it raises instead."""
+  monkeypatch.setenv('SE3DS_DEBUG_SPLAT', '1')
+  model = inference.SE3DSModel(dataclasses.replace(
+      model_config.get_test_config(), splat_mode='sorted_packed'))
+  rs = np.random.RandomState(5)
+  model.add_to_memory(rs.randint(0, 256, (1, 32, 64, 3)),
+                      rs.randint(0, 42, (1, 32, 64, 1)),
+                      rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  position = np.array([[0.3, 0, 0]], np.float32)
+  model(position)  # the warm-up runs eagerly and checks
+  with pytest.raises(RuntimeError, match='SE3DS_DEBUG_SPLAT'):
+    model(position)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('height', [32, 512])
+def test_unprojection_grid_on_the_card_is_numpys(card, height):
+  half = 0.5 * np.pi / height
+  for start, stop, num in ((half, np.pi - half, height),
+                           (1.5 * np.pi - half, -0.5 * np.pi + half,
+                            2 * height)):
+    got = geometry._linspace_f32(start, stop, num, card).cpu().numpy()
+    t = np.arange(num, dtype=np.float32) / np.float32(num - 1)
+    want = (np.float32(start) * (np.float32(1) - t)
+            + np.float32(stop) * t).astype(np.float32)
+    want[-1] = np.float32(stop)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
