@@ -165,6 +165,8 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from se3ds_torch import tracing
+
 H, W = 512, 1024
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 DEPTH_SCALE = 20.0
@@ -193,6 +195,15 @@ def card_name_and_power():
 
 def sync():
   torch.cuda.synchronize()
+
+
+# The point-pass launch counters of `se3ds_torch.tracing`.
+FAST, EXACT = 'splat.fast_launches', 'splat.exact_launches'
+
+
+def set_launches(fast=0, exact=0):
+  for name, value in ((FAST, fast), (EXACT, exact)):
+    tracing.counter(name, value - tracing.count(name))
 
 
 def time_ms(fn, reps, warmup=2):
@@ -564,7 +575,7 @@ def phase_serving(inference, model_config, splat_cuda, power):
   rgb, sem, depth = synthetic_pano(H, 0)
   phase_ms = {}
 
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   t0 = time.perf_counter()
   model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
                       mask_blurred=True)
@@ -582,12 +593,12 @@ def phase_serving(inference, model_config, splat_cuda, power):
       np.array([[1.0, 0.1 * t, 0.0] for t in range(3)], np.float32))
   sync()
   phase_ms['predict_trajectory T=3'] = (time.perf_counter() - t0) * 1e3
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   frames = 6
-  if launches != 2 * frames or splat_cuda.EXACT_LAUNCHES:
+  if launches != 2 * frames or tracing.count(EXACT):
     raise AssertionError(f'{launches} point-pass launches for {frames} '
                          'frames; expected 2 per frame (and no exact one, '
-                         f'got {splat_cuda.EXACT_LAUNCHES})')
+                         f'got {tracing.count(EXACT)})')
 
   for out in outs + [traj]:
     lead = (3,) if out is traj else ()
@@ -826,17 +837,17 @@ def phase_eval(inference, model_config, splat_cuda, power):
   finally:
     geometry.project_memory_equirect = stage
   sync()
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   t0 = time.perf_counter()
   generated, rmse, aux = metrics.rollout_generated(
       generator, video, EVAL_FRAMES, depth_scale, device='cuda')
   sync()
   rollout_s = time.perf_counter() - t0
-  rollout_launches = splat_cuda.EXACT_LAUNCHES
-  if rollout_launches != EVAL_FRAMES or splat_cuda.LAUNCHES:
+  rollout_launches = tracing.count(EXACT)
+  if rollout_launches != EVAL_FRAMES or tracing.count(FAST):
     raise AssertionError(f'{rollout_launches} exact launches for '
                          f'{EVAL_FRAMES} frames (expected 1 per frame), '
-                         f'{splat_cuda.LAUNCHES} fast ones (expected 0)')
+                         f'{tracing.count(FAST)} fast ones (expected 0)')
   for i in range(EVAL_FRAMES):
     frame, mask = generated[i], aux['proj_mask'][i]
     if (tuple(frame.shape) != (EVAL_BATCH, H, W, 3)
@@ -1398,12 +1409,12 @@ def phase_cli(splat_cuda, power):
   for owner, name, _ in saved:
     setattr(owner, name, wrappers[name])
   try:
-    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    set_launches()
     t0 = time.perf_counter()
     main_lib.main(['--mode', 'TEST', '--device', 'cuda', *argv])
     sync()
     test_s = time.perf_counter() - t0
-    launches, fast = splat_cuda.EXACT_LAUNCHES, splat_cuda.LAUNCHES
+    launches, fast = tracing.count(EXACT), tracing.count(FAST)
   finally:
     for owner, name, fn in saved:
       setattr(owner, name, fn)
@@ -1588,6 +1599,7 @@ POSES_K, PERTURBED_VIEWS = 8, 16
 def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
   """(a) Ring memory across a wrap; returns (model, launches, max_err)."""
   frames = 8
+  replays = tracing.count('serve.replays')
   model = inference.SE3DSModel(
       serving_config(model_config, memory_mode='ring'), device='cuda',
       generator=torch.Generator(device='cuda').manual_seed(0))
@@ -1596,7 +1608,7 @@ def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
   buffers = lambda m: [(t.data_ptr(), t.nbytes) for t in m[:4]]
   layout = buffers(mem)
   slots, step_ms = [], []
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   with CheckedStage(geometry) as check:
     _, add_ms = timed_call(check, lambda: model.add_to_memory(
         rgb, sem, depth, np.zeros((1, 3), np.float32)))
@@ -1613,9 +1625,9 @@ def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
     traj, traj_ms = timed_call(check, lambda: model.predict_trajectory(
         np.array([[2.5, 0.1 * t, 0.0] for t in range(RING_TRAJECTORY)],
                  np.float32)))
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   served = RING_STEPS + RING_TRAJECTORY
-  if launches != 2 * served or splat_cuda.EXACT_LAUNCHES:
+  if launches != 2 * served or tracing.count(EXACT):
     raise AssertionError(f'ring: {launches} fast point passes for {served} '
                          f'frames (expected 2 each)')
   if check.calls != 2 * served or buffers(model.get_memory_state(
@@ -1623,8 +1635,9 @@ def phase_ring(inference, model_config, splat_cuda, geometry, power, pano):
     raise AssertionError(f'ring: {check.calls} checked stages, or the memory '
                          'buffers were reallocated')
   # Steps 4 and 6-11 replay graphs (the second call of a key captures).
-  if not model.graphs.replays or check.replayed != 2 * model.graphs.replays:
-    raise AssertionError(f'ring: {model.graphs.replays} replays, '
+  replays = tracing.count('serve.replays') - replays
+  if not replays or check.replayed != 2 * replays:
+    raise AssertionError(f'ring: {replays} replays, '
                          f'{check.replayed} replayed stages checked')
   if (model._frames_written, model._total_frames) != (
       frames, 1 + served) or not torch.isfinite(traj.pred_depth).all():
@@ -1666,9 +1679,9 @@ def phase_poses(model, splat_cuda, geometry, power):
   # later phases on this model replay this graph, checks included.
   drop_graphs(model, 'poses')
   with CheckedStage(geometry) as check:
-    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    set_launches()
     out = model.predict_poses(poses)
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   if (launches != 2 or check.strides != [(0, 0, POSES_K)] * 2
       or check.replayed != 2):
     raise AssertionError(f'predict_poses: {launches} launches, strides '
@@ -1716,12 +1729,12 @@ def phase_perturbation(model, splat_cuda, geometry, power, depth):
   """(c) sample_perturbed_views, 16 views in chunks of 8."""
   from se3ds_torch.inference import perturbation
   start = np.zeros((1, 3), np.float32)
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   with CheckedStage(geometry) as check:
     views, ms = timed_call(check, lambda: perturbation.sample_perturbed_views(
         model, start, depth[0], PERTURBED_VIEWS, np.random.RandomState(0),
         chunk=POSES_K))
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   chunks = -(-len(views) // POSES_K)
   if (len(views) != PERTURBED_VIEWS or launches != 2 * chunks
       or not all(o.pred_rgb.shape == (1, H, W, 3) for _, o in views)):
@@ -1763,7 +1776,7 @@ def phase_re10k(inference, model_config, splat_cuda, geometry, power):
   pano_rgb = torch.clamp(warps[0], 0, 255).int()[None]
   pano_depth = torch.clamp(warps[1][..., 0], 0, 1)[None]
   sem = torch.zeros((1, H, W, 1), dtype=torch.int32, device='cuda')
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   with CheckedStage(geometry) as check:
     _, add_ms = timed_call(check, lambda: model.add_to_memory(
         pano_rgb, sem, pano_depth, np.zeros((1, 3), np.float32),
@@ -1774,7 +1787,7 @@ def phase_re10k(inference, model_config, splat_cuda, geometry, power):
           np.array([[0.1 * (i + 1), 0.05 * (i + 1), 0.0]], np.float32),
           add_preds_to_memory=True))
       steps.append(ms)
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   intrinsics = torch.diag(torch.tensor([float(H), float(H), 1.0],
                                        device='cuda'))
   view = lambda: geometry.get_perspective_from_equirectangular_image(
@@ -1856,7 +1869,7 @@ def phase_checkpoint(inference, model_config, splat_cuda, power, model_dir):
   # order; deterministic ones make two models' outputs comparable bit
   # for bit.
   torch.backends.cudnn.deterministic = True
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  set_launches()
   try:
     for model in (restored, built):
       model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32))
@@ -1867,7 +1880,7 @@ def phase_checkpoint(inference, model_config, splat_cuda, power, model_dir):
       outs.append([x for x in (*step, *traj) if x is not None])
   finally:
     torch.backends.cudnn.deterministic = False
-  launches = splat_cuda.LAUNCHES
+  launches = tracing.count(FAST)
   if launches != 8 or not all(torch.equal(a, b) for a, b in zip(*outs)):
     raise AssertionError(f'checkpoint: {launches} launches, or the restored '
                          'model and the one built from serving_state_dict '
@@ -2154,7 +2167,7 @@ def phase_modes(inference, model_config, splat_cuda, power):
                splat_mode=splat_mode, **kwargs)
     sync()
     t0 = time.perf_counter()
-    counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+    counts = tracing.count(FAST), tracing.count(EXACT)
     want = cpu_guidance(splat_mode, memory, position, depth_scale)
     seen['max_err'] = max(seen['max_err'], equal_or_raise(
         f'{splat_mode} guidance, card vs CPU', [o.cpu() for o in out], want))
@@ -2162,7 +2175,7 @@ def phase_modes(inference, model_config, splat_cuda, power):
       equal_or_raise(f'{splat_mode} guidance vs the exact kernel', out,
                      real(memory, position, height, width, depth_scale,
                           splat_mode='scatter', **kwargs))
-    splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+    set_launches(*counts)
     seen['calls'] += 1
     seen['check_s'] += time.perf_counter() - t0
     return out
@@ -2175,7 +2188,7 @@ def phase_modes(inference, model_config, splat_cuda, power):
       model.reset_memory()
       model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
       step_ms = []
-      splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+      set_launches()
       for i in range(MODE_STEPS):
         sync()
         before, t0 = seen['check_s'], time.perf_counter()
@@ -2184,7 +2197,7 @@ def phase_modes(inference, model_config, splat_cuda, power):
         sync()
         step_ms.append((time.perf_counter() - t0 - seen['check_s']
                         + before) * 1e3)
-      fast, exact = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+      fast, exact = tracing.count(FAST), tracing.count(EXACT)
       want_exact = 2 * MODE_STEPS if mode == 'sorted' else 0
       if fast or exact != want_exact:
         raise AssertionError(f'{mode}: {fast} fast and {exact} exact '
@@ -2208,11 +2221,11 @@ def phase_modes(inference, model_config, splat_cuda, power):
                               model._frames_written,
                               model._sem_frames_live())
   position = torch.tensor([[0.5, 0.0, 0.0]], device='cuda')
-  counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+  counts = tracing.count(FAST), tracing.count(EXACT)
   stage_ms = {mode: device_ms(lambda mode=mode: real(
       memory, position, H, W, DEPTH_SCALE, splat_mode=mode))
               for mode in ('fast', 'scatter') + MODES_11A}
-  splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+  set_launches(*counts)
   log(f'  splat stage per served frame ({memory.coords.shape[-1]} semantic + '
       f'{memory.rgb_coords.shape[-1]} RGB points), device ms: ' + ', '.join(
           f'{k} {v:.4f}' for k, v in stage_ms.items()) + f' ({power})')
@@ -2263,7 +2276,7 @@ def phase_mesh(inference, model_config, splat_cuda, geometry, power):
         # Warm-up at batch 8 and 1 (cuDNN's set-up); no memory write.
         model.predict_poses(poses)
         model(MESH_TRAJECTORY[:1])
-        splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+        set_launches()
         sync()
         t0 = time.perf_counter()
         traj = model.predict_trajectory(MESH_TRAJECTORY)
@@ -2272,20 +2285,20 @@ def phase_mesh(inference, model_config, splat_cuda, geometry, power):
         out = model.predict_poses(poses)
         sync()
         runs[name] = (traj, out, step_ms, model.config.splat_mode,
-                      splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES)
-        launches['fast'] += splat_cuda.LAUNCHES
-        launches['exact'] += splat_cuda.EXACT_LAUNCHES
+                      tracing.count(FAST), tracing.count(EXACT))
+        launches['fast'] += tracing.count(FAST)
+        launches['exact'] += tracing.count(EXACT)
         live = model._live_memory(model.get_memory_state(copy=False),
                                   model._frames_written,
                                   model._sem_frames_live())
         # The splat stage of a served frame on this model's memory, with
         # or without the mesh: what the mesh costs on the card.
-        counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+        counts = tracing.count(FAST), tracing.count(EXACT)
         stage_ms[name] = device_ms(lambda: inference.memory_project(
             live, position, H, W, DEPTH_SCALE,
             splat_mode=model.config.splat_mode,
             mesh=kwargs.get('mesh')))
-        splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+        set_launches(*counts)
         if mode == 'scatter' and name == 'mesh':
           memory = live
         del model
@@ -2320,7 +2333,7 @@ def phase_mesh(inference, model_config, splat_cuda, geometry, power):
 
     # The split exact passes against the one cooperative launch, on the
     # mesh 'scatter' model's memory; these launches are comparisons.
-    counts = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+    counts = tracing.count(FAST), tracing.count(EXACT)
     group = mesh.get_group('data')
     offset = torch.tensor([[0.5, 0.0, 0.0, 0.0]], device='cuda')
     from se3ds_torch import constants
@@ -2378,7 +2391,7 @@ def phase_mesh(inference, model_config, splat_cuda, geometry, power):
     max_err = max(max_err, equal_or_raise("'fast' C=5 vs the exact kernel",
                                           fast5, exact5))
     log(f'  {xyz.shape[-1]} points, C=5: torch.equal')
-    splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+    set_launches(*counts)
   finally:
     torch.backends.cudnn.deterministic = False
     dist.destroy_process_group()
@@ -2588,7 +2601,7 @@ def phase_release_checkpoint(inference, model_config, splat_cuda, power):
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+    set_launches()
     try:
       for model in models:
         model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
@@ -2603,7 +2616,7 @@ def phase_release_checkpoint(inference, model_config, splat_cuda, power):
     finally:
       torch.backends.cudnn.deterministic = deterministic
       torch.backends.cudnn.benchmark = benchmark
-    launches = splat_cuda.LAUNCHES
+    launches = tracing.count(FAST)
     err = max(float((a.float() - b.float()).abs().max())
               for a, b in zip(*outs) if a.numel())
     if launches != 2 * RELEASE_STEPS * len(models) or not all(
@@ -2778,8 +2791,8 @@ def phase_graphs(inference, model_config, splat_cuda, power):
       np.float32) * np.array([1, 1, 0.1], np.float32)
 
   def check(mode, outs, passes, deterministic):
-    fast = splat_cuda.LAUNCHES
-    exact = splat_cuda.EXACT_LAUNCHES
+    fast = tracing.count(FAST)
+    exact = tracing.count(EXACT)
     want = 2 * 2 * GRAPH_FORWARDS * passes
     if (fast, exact) != ((want, 0) if mode == 'fast' else (0, want)):
       raise AssertionError(f'{mode}: launches (fast, exact) {(fast, exact)};'
@@ -2797,10 +2810,13 @@ def phase_graphs(inference, model_config, splat_cuda, power):
     return any(against), any(repeat), fast, exact
 
   # (a) 'fast' under cuDNN's defaults, timed.
-  splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+  tracing.reset()
   outs, timing = graph_passes(models, pano, poses, GRAPH_PASSES,
                               GRAPH_TIMED)
-  replays = graph.graphs.replays
+  replays = tracing.count('serve.replays')
+  captures = {name: span['host_ms'] for name, span in
+              tracing.snapshot()['spans'].items()
+              if name.endswith('.capture')}
   if replays != 1 + GRAPH_CALLS * (GRAPH_PASSES - 1):
     raise AssertionError(f'{replays} replays: every call after the first '
                          'of its key should replay')
@@ -2826,8 +2842,8 @@ def phase_graphs(inference, model_config, splat_cuda, power):
   programs = graph.graphs
   log(f'  graph model: {len(programs.graphs)} graphs, {replays} replays, '
       f'pool {programs.pool_bytes() / 2**30:.3f} GiB; capture s per key: '
-      + ', '.join(f'{k[0][:-2]} {v:.3f}' for k, v in
-                  programs.capture_s.items()) + f' ({power})')
+      + ', '.join(f'{name} {[round(ms / 1e3, 3) for ms in each]}'
+                  for name, each in captures.items()) + f' ({power})')
   if apart and not eager_apart:
     raise AssertionError('graph != eager under cuDNN defaults, while the '
                          'eager model repeats its own bits')
@@ -2842,7 +2858,7 @@ def phase_graphs(inference, model_config, splat_cuda, power):
       for model in models.values():
         model.config = dataclasses.replace(model.config, splat_mode=mode)
       graph.graphs = graphs_lib.Programs()  # captured anew for the mode
-      splat_cuda.LAUNCHES = splat_cuda.EXACT_LAUNCHES = 0
+      set_launches()
       outs, _ = graph_passes(models, pano, poses, GRAPH_CHECK_PASSES)
       mode_apart, mode_eager_apart, fast, exact = check(
           mode, outs, GRAPH_CHECK_PASSES, deterministic)

@@ -26,8 +26,14 @@ graph: state and static inputs live outside it, and outputs are copied
 out right after their replay. A failed capture or replay raises; there
 is no eager fallback.
 
-The kernels' launch counters (`splat_cuda.LAUNCHES`, `EXACT_LAUNCHES`)
-are Python integers that move only when a wrapper runs, so they move
+`run` records its parts as spans of `se3ds_torch.tracing`, children of
+the caller's span: `upload` (making the inputs and copying them into the
+static inputs), then `eager` (a key's first call), or `capture` (its
+second) and `replay`, then `copy_out` (the outputs' clones); and the
+counters `serve.eager_runs`, `serve.captures` and `serve.replays`.
+
+The kernels' launch counters (`splat.fast_launches`,
+`splat.exact_launches`) move only when a wrapper runs, so they move
 while a graph is captured and not when it replays. `run` takes a
 graph's count at capture back out and adds it at each replay: the
 counters count the point passes that ran.
@@ -35,28 +41,30 @@ counters count the point passes that ran.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Callable, Dict, Hashable, NamedTuple, Sequence, Tuple
 
 import torch
 
-from se3ds_torch.ops import splat_cuda
+from se3ds_torch import tracing
+
+LAUNCH_COUNTERS = ('splat.fast_launches', 'splat.exact_launches')
 
 
-def _launch_counts() -> Tuple[int, int]:
-  """(splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES)."""
-  return splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+def _launch_counts() -> Tuple[int, ...]:
+  return tuple(tracing.count(name) for name in LAUNCH_COUNTERS)
 
 
-def _set_launch_counts(counts: Tuple[int, int]) -> None:
-  splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES = counts
+def _add_launch_counts(counts: Sequence[int]) -> None:
+  for name, n in zip(LAUNCH_COUNTERS, counts):
+    if n:
+      tracing.counter(name, n)
 
 
 class _Graph(NamedTuple):
   graph: Any
   inputs: Tuple[torch.Tensor, ...]
   outputs: Dict[str, torch.Tensor]
-  launches: Tuple[int, int]
+  launches: Tuple[int, ...]  # of LAUNCH_COUNTERS
 
 
 class Programs:
@@ -76,8 +84,6 @@ class Programs:
     self.pool = torch.cuda.graph_pool_handle() if pool is None else pool
     self.warmed = set()  # keys run once eagerly
     self.graphs: Dict[Hashable, _Graph] = {}
-    self.capture_s: Dict[Hashable, float] = {}  # seconds to capture a key
-    self.replays = 0
 
   @staticmethod
   def key(name: Hashable, inputs: Sequence[torch.Tensor]) -> Tuple:
@@ -86,38 +92,46 @@ class Programs:
     return (name,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
 
   def run(self, name: Hashable, fn: Callable[..., Dict[str, torch.Tensor]],
-          inputs: Sequence[torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """`fn(*inputs)` as the program of `name` (see the module doc)."""
-    key = self.key(name, inputs)
-    entry = self.graphs.get(key)
+          inputs: Callable[[], Sequence[torch.Tensor]]
+          ) -> Dict[str, torch.Tensor]:
+    """`fn(*inputs())` as the program of `name` (see the module doc);
+    `inputs` makes the call's input tensors."""
+    with tracing.span('upload'):
+      inputs = tuple(inputs())
+      key = self.key(name, inputs)
+      entry = self.graphs.get(key)
+      if entry is not None:
+        for static, x in zip(entry.inputs, inputs):
+          static.copy_(x)
     if entry is None:
       if key not in self.warmed:
-        out = fn(*inputs)
+        with tracing.span('eager'):
+          out = fn(*inputs)
         self.warmed.add(key)
+        tracing.counter('serve.eager_runs')
         return out
-      entry = self._capture_graph(key, fn, inputs)
-    else:
-      for static, x in zip(entry.inputs, inputs):
-        static.copy_(x)
-    entry.graph.replay()
-    self.replays += 1
-    _set_launch_counts(tuple(
-        a + b for a, b in zip(_launch_counts(), entry.launches)))
-    return {k: v.clone() for k, v in entry.outputs.items()}
+      with tracing.span('capture'):
+        entry = self._capture_graph(key, fn, inputs)
+      tracing.counter('serve.captures')
+    with tracing.span('replay'):
+      entry.graph.replay()
+    tracing.counter('serve.replays')
+    _add_launch_counts(entry.launches)
+    with tracing.span('copy_out'):
+      return {k: v.clone() for k, v in entry.outputs.items()}
 
   def _capture_graph(self, key, fn, inputs) -> _Graph:
     # The graph reads its own copies: a caller's tensor may change later.
     static = tuple(x.clone() for x in inputs)
     graph = self._new_graph()
     before = _launch_counts()
-    start = time.perf_counter()
     try:
       with self._capture(graph, pool=self.pool):
         outputs = fn(*static)
-      launched = tuple(a - b for a, b in zip(_launch_counts(), before))
     finally:
-      _set_launch_counts(before)  # nothing ran while it was captured
-    self.capture_s[key] = time.perf_counter() - start
+      # Nothing ran while it was captured.
+      launched = tuple(a - b for a, b in zip(_launch_counts(), before))
+      _add_launch_counts([-n for n in launched])
     entry = _Graph(graph, static, outputs, launched)
     self.graphs[key] = entry
     return entry

@@ -19,6 +19,13 @@ model with a `mesh` (its collectives are not captured). The host keeps
 the frame counters and the per-slot semantic bookkeeping, between
 calls.
 
+Each entry point is one span of `se3ds_torch.tracing` from entry to
+return, timed on the card (`serve.add`, `serve.call`, `serve.step`,
+`serve.trajectory`, `serve.poses`), with the children of
+`graphs.Programs.run` (`upload`, then `eager`, or `capture` and `replay`,
+then `copy_out`), and counts itself in `serve.calls`; building the model
+is the span `serve.build`.
+
 Everything of the JAX API is here: strict and ring memory, the fused
 trajectory, `predict_poses`, `.ply` export, restoring a checkpoint, every
 splat mode, and the device mesh (`mesh=`, a `DeviceMesh` of
@@ -40,6 +47,7 @@ import torch
 
 from se3ds_torch import constants
 from se3ds_torch import device as device_lib
+from se3ds_torch import tracing
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import graphs
@@ -337,6 +345,12 @@ class SE3DSModel:
       it is for: running the eager and the captured model side by side.
       `uncaptured` says why a model runs eagerly.
     """
+    with tracing.span('serve.build'):
+      self._build(config, variables, device, generator, mesh, mesh_axis,
+                  cuda_graphs)
+
+  def _build(self, config, variables, device, generator, mesh, mesh_axis,
+             cuda_graphs):
     self.device = device_lib.resolve(device, 'SE3DSModel')
     if config.batch_size < 1:
       raise ValueError(f'batch_size must be >= 1, got {config.batch_size}.')
@@ -554,9 +568,17 @@ class SE3DSModel:
                        f'({self.config.memory_frames} frames).')
     return torch.full((), slot, dtype=torch.int64, device=self.device)
 
+  def _entry(self, name: str) -> tracing.span:
+    """The span of one call of an entry point."""
+    tracing.counter('serve.calls')
+    return tracing.span(name, timed=self.device.type == 'cuda')
+
   def _run(self, name: Tuple, fn, inputs) -> Dict[str, torch.Tensor]:
-    """`fn(*inputs)`: eagerly, or as the captured program of `name`."""
+    """`fn(*inputs())`: eagerly, or as the captured program of `name`;
+    `inputs` uploads the call's input tensors."""
     if self.graphs is None:
+      with tracing.span('upload'):
+        inputs = inputs()
       return fn(*inputs)
     name = name + (self.config.splat_mode, self.config.project_semantics)
     return self.graphs.run(name, fn, inputs)
@@ -565,15 +587,18 @@ class SE3DSModel:
   def add_to_memory(self, pano_rgb, pano_semantic, pano_depth, position,
                     mask_blurred: bool = True):
     """Adds an equirectangular observation to memory."""
-    self._check_memory_capacity()
-    slot = self._next_write_slot()
-    self._run(('add', mask_blurred),
-              functools.partial(self._add_program, mask_blurred=mask_blurred),
-              (self._tensor(pano_rgb), self._tensor(pano_semantic),
-               self._tensor(pano_depth, torch.float32),
-               self._tensor(position, torch.float32), self._slot(slot)))
-    self._has_prev_frame = True
-    self._wrote(slot, real_semantics=True)
+    with self._entry('serve.add'):
+      self._check_memory_capacity()
+      slot = self._next_write_slot()
+      self._run(('add', mask_blurred),
+                functools.partial(self._add_program,
+                                  mask_blurred=mask_blurred),
+                lambda: (self._tensor(pano_rgb), self._tensor(pano_semantic),
+                         self._tensor(pano_depth, torch.float32),
+                         self._tensor(position, torch.float32),
+                         self._slot(slot)))
+      self._has_prev_frame = True
+      self._wrote(slot, real_semantics=True)
 
   def _add_program(self, pano_rgb, pano_semantic, pano_depth, position, slot,
                    *, mask_blurred: bool):
@@ -757,39 +782,41 @@ class SE3DSModel:
     Returns:
       OutputData with a leading trajectory axis on every field.
     """
-    positions = self._tensor(positions, torch.float32)
-    if positions.dim() == 2:
-      positions = positions[:, None, :]
-    if (positions.dim() != 3 or positions.shape[-1] != 3
-        or positions.shape[1] not in (1, self.batch_size)):
-      raise ValueError(
-          f'positions must be (T, 3) or (T, N, 3) with N in '
-          f'{{1, {self.batch_size}}}, got {tuple(positions.shape)}.')
-    num_frames = positions.shape[0]
-    if num_frames < 1:
-      raise ValueError('positions must contain at least one frame.')
-    self._check_has_prev_frame()
-    cap = self.config.memory_frames
-    if not self._ring and self._frames_written + num_frames > cap:
-      raise ValueError(
-          f'Trajectory of {num_frames} frames would exceed memory capacity '
-          f'({self._frames_written} written, {cap} total). Increase '
-          "SE3DSConfig.memory_frames, reset_memory(), or use "
-          "memory_mode='ring' for unbounded streaming.")
-    start_slot = self._next_write_slot()
-    start_frames = self._frames_written
-    # The exact semantic extent from before the trajectory: predicted
-    # frames only ever turn slots void, so it bounds every frame inside
-    # it, even across a ring wrap onto real slots.
-    sem_frames = min(max(1, self._sem_frames_live()), cap)
-    out = self._run(
-        ('trajectory', start_frames, sem_frames),
-        functools.partial(self._trajectory_program,
-                          start_frames=start_frames, sem_frames=sem_frames),
-        (positions, self._slot(start_slot)))
-    for t in range(num_frames):
-      self._wrote((start_slot + t) % cap, real_semantics=False)
-    return self._to_output_data(out)
+    with self._entry('serve.trajectory'):
+      # Checked where they lie; the upload is the program's.
+      positions = torch.as_tensor(positions, dtype=torch.float32)
+      if positions.dim() == 2:
+        positions = positions[:, None, :]
+      if (positions.dim() != 3 or positions.shape[-1] != 3
+          or positions.shape[1] not in (1, self.batch_size)):
+        raise ValueError(
+            f'positions must be (T, 3) or (T, N, 3) with N in '
+            f'{{1, {self.batch_size}}}, got {tuple(positions.shape)}.')
+      num_frames = positions.shape[0]
+      if num_frames < 1:
+        raise ValueError('positions must contain at least one frame.')
+      self._check_has_prev_frame()
+      cap = self.config.memory_frames
+      if not self._ring and self._frames_written + num_frames > cap:
+        raise ValueError(
+            f'Trajectory of {num_frames} frames would exceed memory '
+            f'capacity ({self._frames_written} written, {cap} total). '
+            'Increase SE3DSConfig.memory_frames, reset_memory(), or use '
+            "memory_mode='ring' for unbounded streaming.")
+      start_slot = self._next_write_slot()
+      start_frames = self._frames_written
+      # The exact semantic extent from before the trajectory: predicted
+      # frames only ever turn slots void, so it bounds every frame inside
+      # it, even across a ring wrap onto real slots.
+      sem_frames = min(max(1, self._sem_frames_live()), cap)
+      out = self._run(
+          ('trajectory', start_frames, sem_frames),
+          functools.partial(self._trajectory_program,
+                            start_frames=start_frames, sem_frames=sem_frames),
+          lambda: (self._tensor(positions), self._slot(start_slot)))
+      for t in range(num_frames):
+        self._wrote((start_slot + t) % cap, real_semantics=False)
+      return self._to_output_data(out)
 
   def _poses_program(self, positions, *, num_frames: int, sem_frames: int):
     k = positions.shape[0]
@@ -818,22 +845,25 @@ class SE3DSModel:
     Returns:
       OutputData batched over poses: pred_rgb is (K, H, 2H, 3) uint8.
     """
-    if self.batch_size != 1:
-      raise ValueError('predict_poses serves many poses of ONE scene; '
-                       f'model batch_size is {self.batch_size}.')
-    positions = self._tensor(positions, torch.float32)
-    if positions.dim() != 2 or positions.shape[-1] != 3:
-      raise ValueError(
-          f'positions must be (K, 3), got {tuple(positions.shape)}.')
-    if positions.shape[0] < 1:
-      raise ValueError('positions must contain at least one pose.')
-    self._check_has_prev_frame()
-    num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
-    out = self._run(
-        ('poses', num_frames, sem_frames),
-        functools.partial(self._poses_program, num_frames=num_frames,
-                          sem_frames=sem_frames), (positions,))
-    return self._to_output_data(out)
+    with self._entry('serve.poses'):
+      if self.batch_size != 1:
+        raise ValueError('predict_poses serves many poses of ONE scene; '
+                         f'model batch_size is {self.batch_size}.')
+      # Checked where they lie; the upload is the program's.
+      positions = torch.as_tensor(positions, dtype=torch.float32)
+      if positions.dim() != 2 or positions.shape[-1] != 3:
+        raise ValueError(
+            f'positions must be (K, 3), got {tuple(positions.shape)}.')
+      if positions.shape[0] < 1:
+        raise ValueError('positions must contain at least one pose.')
+      self._check_has_prev_frame()
+      num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
+      out = self._run(
+          ('poses', num_frames, sem_frames),
+          functools.partial(self._poses_program, num_frames=num_frames,
+                            sem_frames=sem_frames),
+          lambda: (self._tensor(positions),))
+      return self._to_output_data(out)
 
   def _call_program(self, position, *, num_frames: int, sem_frames: int):
     return self._forward(self._memory, self.prev_rgb_frame, position,
@@ -849,22 +879,23 @@ class SE3DSModel:
     the release generator consumes no noise.
     """
     del sample_noise, z
-    position = self._tensor(position, torch.float32)
-    self._check_has_prev_frame()
-    num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
-    if add_preds_to_memory:
-      self._check_memory_capacity()
-      slot = self._next_write_slot()
+    with self._entry('serve.step' if add_preds_to_memory else 'serve.call'):
+      self._check_has_prev_frame()
+      num_frames, sem_frames = self._frame_bucket(), self._sem_bucket()
+      upload = lambda: (self._tensor(position, torch.float32),)
+      if add_preds_to_memory:
+        self._check_memory_capacity()
+        slot = self._next_write_slot()
+        out = self._run(
+            ('step', num_frames, sem_frames, use_projected_rgb),
+            functools.partial(self._step_program, num_frames=num_frames,
+                              sem_frames=sem_frames,
+                              use_projected_rgb=use_projected_rgb),
+            lambda: upload() + (self._slot(slot),))
+        self._wrote(slot, real_semantics=False)  # predicted: all void
+        return self._to_output_data(out)
       out = self._run(
-          ('step', num_frames, sem_frames, use_projected_rgb),
-          functools.partial(self._step_program, num_frames=num_frames,
-                            sem_frames=sem_frames,
-                            use_projected_rgb=use_projected_rgb),
-          (position, self._slot(slot)))
-      self._wrote(slot, real_semantics=False)  # predicted: all void
+          ('call', num_frames, sem_frames),
+          functools.partial(self._call_program, num_frames=num_frames,
+                            sem_frames=sem_frames), upload)
       return self._to_output_data(out)
-    out = self._run(
-        ('call', num_frames, sem_frames),
-        functools.partial(self._call_program, num_frames=num_frames,
-                          sem_frames=sem_frames), (position,))
-    return self._to_output_data(out)

@@ -29,8 +29,9 @@ the kernel's words, on a CPU tensor from the plain version. Kernel and
 plain version give the same bits: min and max do not depend on the order
 of the points.
 
-`LAUNCHES` and `EXACT_LAUNCHES` count the point-pass launches of each
-source in this process (one per call of `fast_words`, `exact_words` or
+The counters `splat.fast_launches` and `splat.exact_launches` of
+`se3ds_torch.tracing` count the point-pass launches of each source in
+this process (one per call of `fast_words`, `exact_words` or
 `exact_pass`; resolves are not counted).
 
 The words are u32 held in int32 tensors and combine by UNSIGNED minimum
@@ -46,13 +47,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.ops import cuda_build
 from se3ds_torch.ops import splat as splat_lib
 
 SOURCE = 'splat.cu'
 EXACT_SOURCE = 'splat_exact.cu'
-LAUNCHES = 0
-EXACT_LAUNCHES = 0
 
 _U32_MASK = 0xFFFFFFFF
 
@@ -208,7 +208,6 @@ def fast_words(points: torch.Tensor, feats: torch.Tensor, height: int,
     (B, H*W, 2) int32 words (u32 depth bits, u32 ~key) with `need_depth`,
     else (B, H*W) int32 ~key words; 0xFFFFFFFF (-1) where empty.
   """
-  global LAUNCHES
   points, feats, offset = check_inputs(points, feats, height, width,
                                        offset=offset)
   batch, _, num_points = points.shape
@@ -220,7 +219,7 @@ def fast_words(points: torch.Tensor, feats: torch.Tensor, height: int,
     _call(SOURCE, 'se3ds_splat_fast',
           *_point_args(points, feats, offset, height, width, depth_scale,
                        input_void_class), int(need_depth), words.data_ptr())
-  LAUNCHES += 1
+  tracing.counter('splat.fast_launches')
   return words
 
 
@@ -330,7 +329,6 @@ def exact_words(points: torch.Tensor, feats: torch.Tensor, height: int,
   u32 min depth bits, then the u32 min of ~order_key(feature) over the
   window per channel; 0xFFFFFFFF (-1) where empty.
   """
-  global EXACT_LAUNCHES
   points, feats, offset = check_inputs(points, feats, height, width,
                                        max_channels=None, offset=offset)
   batch, _, num_points = points.shape
@@ -343,7 +341,7 @@ def exact_words(points: torch.Tensor, feats: torch.Tensor, height: int,
           *_point_args(points, feats, offset, height, width, depth_scale,
                        input_void_class),
           splat_lib.DEPTH_COLLISION_TOLERANCE, words.data_ptr())
-  EXACT_LAUNCHES += 1
+  tracing.counter('splat.exact_launches')
   return words
 
 
@@ -358,7 +356,6 @@ def exact_pass(points: torch.Tensor, feats: torch.Tensor, height: int,
   each point against word 0 as it stands (the minima of every rank after
   `all_reduce_unsigned_min`). Args as `exact_words`; returns the words.
   """
-  global EXACT_LAUNCHES
   if pass_ not in (1, 2) or (pass_ == 2) != (words is not None):
     raise ValueError('pass 1 makes the words, pass 2 takes them')
   points, feats, offset = check_inputs(points, feats, height, width,
@@ -379,7 +376,7 @@ def exact_pass(points: torch.Tensor, feats: torch.Tensor, height: int,
           *_point_args(points, feats, offset, height, width, depth_scale,
                        input_void_class),
           splat_lib.DEPTH_COLLISION_TOLERANCE, pass_, words.data_ptr())
-  EXACT_LAUNCHES += 1
+  tracing.counter('splat.exact_launches')
   return words
 
 

@@ -10,23 +10,27 @@ key has been captured, then profiles `--frames` more. By default the
 steps replay the model's captured CUDA graph; `--eager` builds the model
 with `cuda_graphs=False` and profiles the same steps run op by op.
 Prints the device time by kernel (top `--top`), the device operations
-(kernels, memsets, copies) per frame, the splat stage's device span
-(everything `inference.memory_project` runs: both splats from the world
-memory to the guidance images, and the mask; eager only, since a replay
-runs no Python) and the 'fast' splat kernels' share, and the device's
-idle share of the profiled wall time, with the card's name and power
-limit. Needs a CUDA card. Run as a file with PYTHONPATH=<tree> it
-profiles that tree's `se3ds_torch`.
+(kernels, memsets, copies) per frame, the 'fast' splat kernels' share,
+and the device's idle share of the profiled wall time; the set-up's
+spans of `se3ds_torch.tracing` (the build, the memory write, each key's
+eager run and capture) and its counters; then, over `--frames` more
+steps without the profiler, the median host and device time of each span
+of the serving API (`serve.*`: the step, its upload, replay and
+copy-out) and its counters; with the card's name and power limit. Needs
+a CUDA card. Run as a file with PYTHONPATH=<tree> it profiles that
+tree's `se3ds_torch`.
 """
 
 import argparse
+import statistics
 import subprocess
 import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
+from se3ds_torch import tracing
 from se3ds_torch.models import inference
 from se3ds_torch.models import model_config
 
@@ -68,20 +72,13 @@ def main():
       cfg, generator=torch.Generator(device='cuda').manual_seed(0),
       cuda_graphs=not args.eager)
   model.add_to_memory(*_pano(512), np.zeros((1, 3), np.float32))
-  memory_project = inference.memory_project
-
-  def splat_stage(*args, **kwargs):
-    with record_function('splat stage'):
-      return memory_project(*args, **kwargs)
-
-  inference.memory_project = splat_stage
   step = lambda i: model(np.array([[0.2 * (i + 1), 0.1, 0.0]], np.float32),
                          add_preds_to_memory=True)
   warmup = RING_FRAMES + 1
   for i in range(warmup):
     step(i)
   torch.cuda.synchronize()
-  replays = model.graphs.replays if model.graphs else 0
+  replays = tracing.count('serve.replays')
 
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -93,20 +90,16 @@ def main():
 
   averages = prof.key_averages()
   cuda = torch.autograd.DeviceType.CUDA
-  # The stage's range counts the device time of the kernels it launched;
-  # its device-side annotation row, where the profiler adds one, is no
-  # kernel.
+  replays = tracing.count('serve.replays') - replays
+  # Device work only, not the device-side rows of the program's spans.
   events = [e for e in averages if e.device_type == cuda
-            and e.self_device_time_total > 0 and e.key != 'splat stage']
-  # The stage's device span: the profiler's device-side row of the range
-  # (first to last device operation of each call, gaps included).
-  stage_us = sum(e.self_device_time_total for e in averages
-                 if e.key == 'splat stage' and e.device_type == cuda)
+            and e.self_device_time_total > 0
+            and not e.key.startswith('serve.')]
   events.sort(key=lambda e: e.self_device_time_total, reverse=True)
   device_us = sum(e.self_device_time_total for e in events)
   print(power)
   if model.graphs:
-    print(f'graph replays: {model.graphs.replays - replays} of the '
+    print(f'graph replays: {replays} of the '
           f'{args.frames} profiled steps ({len(model.graphs.graphs)} graphs '
           'captured)')
   else:
@@ -133,20 +126,32 @@ def main():
           f'{e.key[:90]}')
   print(f'device operations per frame: '
         f'{sum(e.count for e in events) / args.frames:.1f}')
-  if stage_us:
-    print(f'splat stage (memory_project): device span '
-          f'{stage_us / 1e3 / args.frames:.4f} ms/frame, share '
-          f'{stage_us / device_us:.5f}')
-  elif model.graphs:
-    print('splat stage (memory_project): not measured (a replay runs no '
-          'Python, so no range); the splat kernels below')
-  else:
-    print('splat stage (memory_project): the profiler kept no device-side '
-          'row of the range; time it with se3ds_torch/splat_stage.py')
   splat_us = sum(e.self_device_time_total for e in events
                  if 'splat_fast' in e.key or 'resolve_fast' in e.key)
   print(f'splat_fast kernels: {splat_us / 1e3 / args.frames:.4f} ms/frame, '
         f'share {splat_us / device_us:.5f}')
+  setup = tracing.snapshot()
+  parts = [f"{name} {sum(span['host_ms']):.1f} ms ({span['count']})"
+           for name, span in sorted(setup['spans'].items())
+           if name.startswith(('serve.build', 'serve.add'))
+           or name.endswith(('.eager', '.capture'))]
+  counters = [f'{name} {n}' for name, n in sorted(setup['counters'].items())]
+  print(f"set-up (se3ds_torch.tracing): {', '.join(parts)}; "
+        f"{', '.join(counters)}")
+  tracing.reset()
+  for i in range(args.frames):
+    step(warmup + args.frames + i)
+  torch.cuda.synchronize()
+  snapshot = tracing.snapshot()
+  print(f'without the profiler, medians over {args.frames} steps '
+        '(se3ds_torch.tracing):')
+  for name, span in sorted(snapshot['spans'].items()):
+    device = (f", device {statistics.median(span['device_ms']):.3f} ms"
+              if span['device_ms'] else '')
+    print(f"  {name}: {span['count']} calls, host "
+          f"{statistics.median(span['host_ms']):.3f} ms{device}")
+  print('  counters: ' + ', '.join(
+      f'{name} {n}' for name, n in sorted(snapshot['counters'].items())))
 
 
 if __name__ == '__main__':

@@ -12,61 +12,34 @@ per chunk, activations rematerialised with `--remat`; warms up with two
 chunk that does not fit raises the card's out-of-memory error: run one
 process per chunk to find the largest that fits. Prints the host wall
 and the device's busy time and idle share; for each part of the step
-(the D-only step, each D
-update, each backward, each clip, each Adam step, the EMA) its
-calls, its host time and the device time of the kernels it launched
-(parts nest: a D update is inside the D-only step); the device time by
-kernel (top `--top`) and the device operations per step; the peak device
-memory; the step's FLOPs (`Trainer.step_flops`) and TFLOP/s by the wall;
-with the card's name and power limit. Needs a CUDA card.
+(the program's own spans `train.step.*` of `se3ds_torch.tracing`: the
+D-only step, each D update, each backward, each clip, each Adam step,
+the EMA) its calls, its host time and the device time of the kernels it
+launched under the profiler (parts nest: a D update is inside the D-only
+step), then each part's median host and device time over `--steps` more
+steps without the profiler; the device time by kernel (top `--top`) and
+the device operations per step; the peak device memory; the step's FLOPs
+(`Trainer.step_flops`) and TFLOP/s by the wall; with the card's name and
+power limit. Needs a CUDA card.
 """
 
 import argparse
-import contextlib
 import os
+import statistics
 import subprocess
 import tempfile
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from se3ds_torch import config as config_lib
-from se3ds_torch.train import losses as losses_lib
+from se3ds_torch import tracing
 from se3ds_torch.train import state as state_lib
 from se3ds_torch.train import trainer as trainer_lib
 
 LOWRES_GIN = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'configs', 'lowres', 'lowres.gin')
-
-# (module, function name, range name): the parts of a step.
-PARTS = ((state_lib, 'train_d_step', 'D-only step'),
-         (state_lib, '_update_discriminator', 'D update'),
-         (state_lib, '_gradients', 'backward (autograd.grad)'),
-         (state_lib, '_apply_gradients', 'Adam'),
-         (losses_lib, 'clip_grad_per_leaf', 'clip'),
-         (state_lib, 'update_ema', 'EMA'))
-
-
-@contextlib.contextmanager
-def _ranges():
-  """Wraps each part of the step in a profiler range while inside."""
-  saved = [(module, name, getattr(module, name))
-           for module, name, _ in PARTS]
-
-  def ranged(fn, label):
-    def call(*args, **kwargs):
-      with record_function(label):
-        return fn(*args, **kwargs)
-    return call
-
-  for (module, name, fn), (_, _, label) in zip(saved, PARTS):
-    setattr(module, name, ranged(fn, label))
-  try:
-    yield [label for _, _, label in PARTS]
-  finally:
-    for module, name, fn in saved:
-      setattr(module, name, fn)
 
 
 def main():
@@ -96,8 +69,8 @@ def main():
     step()
   torch.cuda.synchronize()
 
-  with _ranges() as labels, profile(activities=[
-      ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     for _ in range(args.steps):
       step()
@@ -106,6 +79,8 @@ def main():
 
   cuda = torch.autograd.DeviceType.CUDA
   averages = prof.key_averages()
+  labels = sorted({e.key for e in averages
+                   if e.key.startswith('train.step')})
   # Device work only: kernels, memsets and copies, not the device-side
   # rows of ranges (the ranges above, the optimizer's own).
   events = [e for e in averages if e.device_type == cuda
@@ -134,6 +109,18 @@ def main():
     print(f'  {label}: {part.count / args.steps:.0f} calls/step, host '
           f'{part.cpu_time_total / 1e3 / args.steps:.2f} ms/step, device '
           f'{part.device_time_total / 1e3 / args.steps:.2f} ms/step')
+  tracing.reset()
+  for _ in range(args.steps):
+    step()
+  spans = tracing.snapshot()['spans']
+  steps = tracing.count('train.steps')
+  print(f'without the profiler, medians over {steps} steps '
+        '(se3ds_torch.tracing):')
+  for name, span in sorted(spans.items()):
+    device = (f", device {statistics.median(span['device_ms']):.2f} ms"
+              if span['device_ms'] else '')
+    print(f"  {name}: {span['count'] / steps:.0f} calls/step, host "
+          f"{statistics.median(span['host_ms']):.2f} ms{device}")
   print(f'{"device ms/step":>15} {"share":>7} {"calls":>6}  kernel')
   for e in events[:args.top]:
     print(f'{e.self_device_time_total / 1e3 / args.steps:15.3f} '

@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from se3ds_torch import device as device_lib
+from se3ds_torch import tracing
 
 
 def kld_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
@@ -60,12 +61,13 @@ def multiscale_gan_losses(fake_logit_list, real_logit_list):
 def clip_grad_per_leaf(grads: Sequence[torch.Tensor],
                        clip_norm: float = 5.0) -> List[torch.Tensor]:
   """tf.clip_by_norm on each tensor: g * min(1, clip / max(|g|, 1e-20)),
-  the norm in float32."""
-  norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
-  factors = torch.clamp(
-      torch.full_like(norms, clip_norm) / torch.clamp(norms, min=1e-20),
-      max=1.0)
-  return [g * f.to(g.dtype) for g, f in zip(grads, factors.unbind())]
+  the norm in float32 (the span `clip` of `se3ds_torch.tracing`)."""
+  with tracing.span('clip', timed=grads[0].is_cuda):
+    norms = torch.stack(torch._foreach_norm([g.float() for g in grads]))
+    factors = torch.clamp(
+        torch.full_like(norms, clip_norm) / torch.clamp(norms, min=1e-20),
+        max=1.0)
+    return [g * f.to(g.dtype) for g, f in zip(grads, factors.unbind())]
 
 
 def mean_leaf_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -29,6 +29,13 @@ metrics are the global batch's. At world 1 nothing of this runs.
 `hp.remat` rematerialises the G and D forwards that gradients flow
 through, block by block (`layers.rematerialise`); the results equal the
 stored-activation path's.
+
+The step's parts are spans of `se3ds_torch.tracing`, timed on the card:
+`train.step`, with the children `d_only` (`train_d_step`) and `g_d`
+(`train_g_d_step`); inside them `d_update` (`_update_discriminator`),
+`backward` (`_gradients`), `clip` (`losses.clip_grad_per_leaf`), `adam`
+(`_apply_gradients`) and `ema` (`update_ema`), so `train.step.g_d.adam`
+is the generator's Adam step. `train.steps` counts the steps.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from se3ds_torch import tracing
 from se3ds_torch.models import folding
 from se3ds_torch.models import layers
 from se3ds_torch.parallel import mesh
@@ -127,48 +135,58 @@ def _disc_pair_input(generated, depth_out, inputs, hp: GANHParams):
 
 def _apply_gradients(optimizer: mesh.Zero1Adam,
                      grads: List[torch.Tensor]) -> None:
-  optimizer.step(grads)
+  with tracing.span('adam', timed=grads[0].is_cuda):
+    optimizer.step(grads)
 
 
 def _gradients(loss: torch.Tensor, module: nn.Module,
                data: mesh.DataParallel) -> List[torch.Tensor]:
   """d loss / d module's parameters, averaged over the ranks."""
-  grads = torch.autograd.grad(loss, list(module.parameters()),
-                              allow_unused=True, materialize_grads=True)
-  return data.average(list(grads))
+  with tracing.span('backward', timed=loss.is_cuda):
+    grads = torch.autograd.grad(loss, list(module.parameters()),
+                                allow_unused=True, materialize_grads=True)
+    return data.average(list(grads))
 
 
 def _update_discriminator(state: TrainState, generated, depth_out, inputs,
                           hp: GANHParams):
   """One D update on the detached fake; returns (disc loss, mean clipped
   gradient norm)."""
-  discriminator = state.discriminator.train()
-  with layers.rematerialise(hp.remat):
-    logit_outputs = discriminator(
-        _disc_pair_input(generated, depth_out, inputs, hp))
-  fake_list, real_list = losses_lib.split_disc_outputs(logit_outputs)
-  _, disc_loss = losses_lib.multiscale_gan_losses(fake_list, real_list)
-  disc_loss = hp.lambda_gan * disc_loss
-  grads = _gradients(disc_loss, discriminator, state.data)
-  grads = losses_lib.clip_grad_per_leaf(grads, hp.grad_clip_norm)
-  grad_norm = losses_lib.mean_leaf_norm(grads)
-  _apply_gradients(state.d_opt, grads)
-  return disc_loss.detach(), grad_norm
+  with tracing.span('d_update', timed=generated.is_cuda):
+    discriminator = state.discriminator.train()
+    with layers.rematerialise(hp.remat):
+      logit_outputs = discriminator(
+          _disc_pair_input(generated, depth_out, inputs, hp))
+    fake_list, real_list = losses_lib.split_disc_outputs(logit_outputs)
+    _, disc_loss = losses_lib.multiscale_gan_losses(fake_list, real_list)
+    disc_loss = hp.lambda_gan * disc_loss
+    grads = _gradients(disc_loss, discriminator, state.data)
+    grads = losses_lib.clip_grad_per_leaf(grads, hp.grad_clip_norm)
+    grad_norm = losses_lib.mean_leaf_norm(grads)
+    _apply_gradients(state.d_opt, grads)
+    return disc_loss.detach(), grad_norm
 
 
 def train_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
                  hp: GANHParams) -> None:
   """D-only update; G runs forward in train mode (statistics and `u`
   update, no gradients)."""
-  inputs = _prepare_inputs(inputs, hp)
-  with torch.no_grad():
-    g_out = state.generator.train()(inputs)
-  _update_discriminator(state, g_out[6], g_out[3], inputs, hp)
+  with tracing.span('d_only', timed=inputs['image'].is_cuda):
+    inputs = _prepare_inputs(inputs, hp)
+    with torch.no_grad():
+      g_out = state.generator.train()(inputs)
+    _update_discriminator(state, g_out[6], g_out[3], inputs, hp)
 
 
 def train_g_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
                    hp: GANHParams) -> Dict[str, torch.Tensor]:
   """Joint G+D update; returns the step's metrics (0-dim tensors)."""
+  with tracing.span('g_d', timed=inputs['image'].is_cuda):
+    return _g_d_step(state, inputs, hp)
+
+
+def _g_d_step(state: TrainState, inputs: Dict[str, torch.Tensor],
+              hp: GANHParams) -> Dict[str, torch.Tensor]:
   inputs = _prepare_inputs(inputs, hp)
   generator = state.generator.train()
   blurred_mask = inputs['blurred_mask']
@@ -260,12 +278,13 @@ def update_ema(step: int, ema: nn.Module, generator: nn.Module,
   ema_tensors = [*ema.parameters(), *ema.buffers()]
   new_tensors = [*(generator.parameters() if params is None else params),
                  *generator.buffers()]
-  if step < hp.ema_init_step + hp.num_batched_steps:
-    torch._foreach_copy_(ema_tensors, new_tensors)
-    return
-  delta = torch._foreach_sub(ema_tensors, new_tensors)
-  torch._foreach_mul_(delta, 1.0 - hp.ema_decay)
-  torch._foreach_sub_(ema_tensors, delta)
+  with tracing.span('ema', timed=ema_tensors[0].is_cuda):
+    if step < hp.ema_init_step + hp.num_batched_steps:
+      torch._foreach_copy_(ema_tensors, new_tensors)
+      return
+    delta = torch._foreach_sub(ema_tensors, new_tensors)
+    torch._foreach_mul_(delta, 1.0 - hp.ema_decay)
+    torch._foreach_sub_(ema_tensors, delta)
 
 
 def split_batch(batch: Dict[str, torch.Tensor], k: int
@@ -286,11 +305,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
   """One cluster element on an NHWC batch dict ('image', 'depth',
   'proj_image', 'proj_depth', 'proj_mask', 'blurred_mask'): split, (k-1)
   D steps and one G+D step, then step + 1. Returns the G+D metrics."""
-  chunks = split_batch(batch, hp.d_step_per_g_step)
-  for chunk in chunks[:-1]:
-    train_d_step(state, chunk, hp)
-  metrics = train_g_d_step(state, chunks[-1], hp)
-  state.step += 1
+  with tracing.span('train.step', timed=batch['image'].is_cuda):
+    chunks = split_batch(batch, hp.d_step_per_g_step)
+    for chunk in chunks[:-1]:
+      train_d_step(state, chunk, hp)
+    metrics = train_g_d_step(state, chunks[-1], hp)
+    state.step += 1
+  tracing.counter('train.steps')
   return metrics
 
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.eval import metrics
 from se3ds_torch.models import discriminator as discriminator_lib
 from se3ds_torch.models import folding
@@ -25,6 +26,8 @@ from se3ds_torch.ops import splat_cuda
 from se3ds_torch.train import checkpoints
 from se3ds_torch.train import state as state_lib
 from se3ds_torch.train import trainer as trainer_lib
+
+FAST, EXACT = 'splat.fast_launches', 'splat.exact_launches'
 
 
 @pytest.fixture
@@ -55,11 +58,11 @@ def test_kernel_equals_plain_version(card, batch, num_points, channels):
   """Tolerance: none (torch.equal); min and max are order-free."""
   coords, feats = _cloud(batch + num_points, batch, num_points, channels,
                          card)
-  before = splat_cuda.LAUNCHES
+  before = tracing.count(FAST)
   zk, pk = splat_cuda.splat_fast(coords, feats, 64, 256, 20.0, -1.0)
   zp, pp = splat_cuda.splat_fast_plain(coords, feats, 64, 256, 20.0, -1.0)
   torch.cuda.synchronize()
-  assert splat_cuda.LAUNCHES == before + (1 if num_points else 0)
+  assert tracing.count(FAST) == before + (1 if num_points else 0)
   assert torch.equal(zk, zp) and torch.equal(pk, pp)
 
 
@@ -76,9 +79,9 @@ def test_strided_inputs_reach_the_kernel(card):
 @pytest.mark.cuda
 def test_cuda_tensors_never_take_the_plain_version(card):
   coords, feats = _cloud(6, 1, 1000, 3, card)
-  before = splat_cuda.LAUNCHES
+  before = tracing.count(FAST)
   splat.project_to_feat_fast(coords, feats, 32, 64, 20.0, -1.0)
-  assert splat_cuda.LAUNCHES == before + 1
+  assert tracing.count(FAST) == before + 1
   with pytest.raises(TypeError):
     splat.project_to_feat_fast(coords.double(), feats, 32, 64, 20.0, -1.0)
 
@@ -92,9 +95,9 @@ def test_model_serves_on_the_card_by_default(card):
                       rs.randint(0, 42, (1, 32, 64, 1)),
                       rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
                       np.zeros((1, 3), np.float32))
-  before = splat_cuda.LAUNCHES
+  before = tracing.count(FAST)
   out = model(np.array([[0.3, 0, 0]], np.float32), add_preds_to_memory=True)
-  assert splat_cuda.LAUNCHES == before + 2
+  assert tracing.count(FAST) == before + 2
   assert out.pred_rgb.is_cuda and out.pred_rgb.dtype == torch.uint8
 
 
@@ -107,22 +110,22 @@ def test_exact_kernel_equals_plain_version(card, batch, num_points, channels,
   """Tolerance: none (torch.equal); min and max are order-free."""
   coords, feats = _cloud(batch + num_points, batch, num_points, channels,
                          card, fractional)
-  before = splat_cuda.EXACT_LAUNCHES
+  before = tracing.count(EXACT)
   zk, fk = splat_cuda.splat_exact(coords, feats, 64, 256, 20.0, -1.0, -1.0)
   zp, fp = splat_cuda.splat_exact_plain(coords, feats, 64, 256, 20.0, -1.0,
                                         -1.0)
   torch.cuda.synchronize()
   # Both passes are one cooperative launch.
-  assert splat_cuda.EXACT_LAUNCHES == before + (1 if num_points else 0)
+  assert tracing.count(EXACT) == before + (1 if num_points else 0)
   assert torch.equal(zk, zp) and torch.equal(fk, fp)
 
 
 @pytest.mark.cuda
 def test_exact_splat_never_takes_the_plain_version(card):
   coords, feats = _cloud(7, 1, 1000, 3, card)
-  before = splat_cuda.EXACT_LAUNCHES
+  before = tracing.count(EXACT)
   splat.project_to_feat(coords, feats, 32, 64, 20.0, -1.0)
-  assert splat_cuda.EXACT_LAUNCHES == before + 1
+  assert tracing.count(EXACT) == before + 1
   with pytest.raises(TypeError):
     splat.project_to_feat(coords.double(), feats, 32, 64, 20.0, -1.0)
 
@@ -140,9 +143,9 @@ def test_rollout_runs_on_the_card_by_default(card):
            'depth': rs.uniform(0.1, 0.8, (1, 2, 32, 64, 1)).astype(
                np.float32),
            'position': np.zeros((1, 2, 4), np.float32)}
-  before = splat_cuda.EXACT_LAUNCHES
+  before = tracing.count(EXACT)
   generated, _, _ = metrics.rollout_generated(generator, batch, 2, 20.0)
-  assert splat_cuda.EXACT_LAUNCHES == before + 2  # one per frame
+  assert tracing.count(EXACT) == before + 2  # one per frame
   assert generated[1].is_cuda and torch.isfinite(generated[1]).all()
 
 
@@ -179,14 +182,14 @@ def test_equirect_kernels_equal_plain_version(card, mode, channels,
   xyz, feats, offset = _world_cloud(channels, 2, 60000, channels, card)
   if strided:
     xyz, feats = xyz[:, :, :40000], feats[:, :40000]
-  counter = 'LAUNCHES' if mode == 'fast' else 'EXACT_LAUNCHES'
-  before = getattr(splat_cuda, counter)
+  counter = FAST if mode == 'fast' else EXACT
+  before = tracing.count(counter)
   depth, feat = geometry.project_memory_equirect(
       feats, xyz, offset, 64, 128, -1.0, 20.0, mode, need_depth=need_depth)
   plain_depth, plain_feat = geometry.project_memory_equirect_plain(
       feats, xyz, offset, 64, 128, -1.0, 20.0, mode)
   torch.cuda.synchronize()
-  assert getattr(splat_cuda, counter) == before + 1
+  assert tracing.count(counter) == before + 1
   assert torch.equal(feat, plain_feat)
   if need_depth:
     assert torch.equal(depth, plain_depth)
@@ -215,21 +218,21 @@ def test_card_paths_never_run_the_plain_prelude_or_splat(card, monkeypatch):
                       rs.randint(0, 42, (1, 32, 64, 1)),
                       rs.uniform(0.1, 0.8, (1, 32, 64)).astype(np.float32),
                       np.zeros((1, 3), np.float32))
-  fast, exact = splat_cuda.LAUNCHES, splat_cuda.EXACT_LAUNCHES
+  fast, exact = tracing.count(FAST), tracing.count(EXACT)
   model(np.array([[0.3, 0, 0]], np.float32), add_preds_to_memory=True)
   model.predict_trajectory(np.array([[0.5, 0, 0], [0.6, 0.1, 0]],
                                     np.float32))
-  assert splat_cuda.LAUNCHES == fast + 2 * 3
-  assert splat_cuda.EXACT_LAUNCHES == exact
+  assert tracing.count(FAST) == fast + 2 * 3
+  assert tracing.count(EXACT) == exact
   generator = model.model
   batch = {'image': rs.rand(2, 3, 32, 64, 3).astype(np.float32),
            'depth': rs.uniform(0.1, 0.8, (2, 3, 32, 64, 1)).astype(
                np.float32),
            'position': rs.uniform(-0.2, 0.2, (2, 3, 4)).astype(np.float32)}
-  fast = splat_cuda.LAUNCHES
+  fast = tracing.count(FAST)
   metrics.rollout_generated(generator, batch, 3, 20.0)
-  assert splat_cuda.EXACT_LAUNCHES == exact + 3
-  assert splat_cuda.LAUNCHES == fast
+  assert tracing.count(EXACT) == exact + 3
+  assert tracing.count(FAST) == fast
 
 
 @pytest.mark.cuda
@@ -442,9 +445,9 @@ def test_cli_train_then_test_on_the_card(card, tmp_path):
                   "R2RImageDataset.num_examples_override = {'train': 8}"):
     argv += ['--gin_bindings', binding]
   assert main_lib.main(argv + ['--mode', 'TRAIN']) == 0
-  before = splat_cuda.EXACT_LAUNCHES
+  before = tracing.count(EXACT)
   assert main_lib.main(argv + ['--mode', 'TEST']) == 0
-  assert splat_cuda.EXACT_LAUNCHES > before
+  assert tracing.count(EXACT) > before
   with open(tmp_path / 'model' / 'scores_val_seen.csv') as f:
     (row,) = list(csv.DictReader(f))
   scores = {k: float(v) for k, v in row.items() if '/eval_image/' in k}
@@ -601,11 +604,11 @@ def test_split_exact_passes_equal_the_cooperative_launch(card, channels):
                          fractional=True)
   args = (coords, feats, 64, 128, 20.0, -1.0)
   coop = splat_cuda.exact_words(*args)
-  before = splat_cuda.EXACT_LAUNCHES
+  before = tracing.count(EXACT)
   words = splat_cuda.exact_pass(*args, 1)
   words = splat_cuda.exact_pass(*args, 2, words=words)
   torch.cuda.synchronize()
-  assert splat_cuda.EXACT_LAUNCHES == before + 2
+  assert tracing.count(EXACT) == before + 2
   assert torch.equal(words, coop)
 
 
@@ -705,16 +708,17 @@ def test_graph_serving_equals_eager(card, config, mode):
   graph = inference.SE3DSModel(cfg)
   graph.model.load_state_dict(eager.model.state_dict())
   assert eager.graphs is None and graph.uncaptured is None
-  launches = []
+  launches, replays = [], tracing.count('serve.replays')
   for model in (eager, graph):
-    before = splat_cuda.LAUNCHES + splat_cuda.EXACT_LAUNCHES
+    before = tracing.count(FAST) + tracing.count(EXACT)
     outs = serve(model)
-    launches.append(splat_cuda.LAUNCHES + splat_cuda.EXACT_LAUNCHES - before)
+    launches.append(tracing.count(FAST) + tracing.count(EXACT) - before)
     model.outs = outs
   kernel = mode in geometry._SPLATS and geometry._SPLATS[mode][0]
   assert launches[0] == launches[1] == (2 * 2 * (3 + 2 + 2 + 1) if kernel
                                         else 0)
-  assert graph.graphs.replays >= 8 and len(graph.graphs.graphs) >= 6
+  assert tracing.count('serve.replays') - replays >= 8
+  assert len(graph.graphs.graphs) >= 6
   for a, b in zip(eager.outs, graph.outs):
     _outputs_equal(a, b)
 
@@ -768,3 +772,29 @@ def test_unprojection_grid_on_the_card_is_numpys(card, height):
             + np.float32(stop) * t).astype(np.float32)
     want[-1] = np.float32(stop)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('every_s,pairs', [(0.0, 3), (60.0, 1)])
+def test_timed_spans_read_their_device_time(card, monkeypatch, every_s,
+                                            pairs):
+  """A timed span's event pair is read at a later pair's recording once
+  it has completed, or at `snapshot()`; its device time covers the work
+  enqueued inside it; a name records a pair at most once in
+  `TIMED_EVERY_S`."""
+  monkeypatch.setattr(tracing, 'TIMED_EVERY_S', every_s)
+  tracing.reset()
+  x = torch.randn(4096, 4096, device=card)
+  for _ in range(3):
+    with tracing.span('serve.call', timed=True):
+      with tracing.span('replay'):
+        for _ in range(8):
+          x = x @ x
+          x = x / x.norm()
+    torch.cuda.synchronize()
+  spans = tracing.snapshot()['spans']
+  device = spans['serve.call']['device_ms']
+  assert spans['serve.call']['count'] == 3
+  assert len(device) == pairs and min(device) > 0
+  assert spans['serve.call.replay']['device_ms'] == []
+  tracing.reset()

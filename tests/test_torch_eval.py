@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.eval import fid as fid_t
 from se3ds_torch.eval import inception as inception_t
 from se3ds_torch.eval import metrics as metrics_t
 from se3ds_torch.models import folding as folding_t
 from se3ds_torch.models import generator as generator_t
 from se3ds_torch.ops import geometry as geometry_t
-from se3ds_torch.ops import splat_cuda
 from se3ds_tpu.eval import fid as fid_j
 from se3ds_tpu.eval import inception as inception_j
 from se3ds_tpu.eval import metrics as metrics_j
@@ -276,7 +276,7 @@ def test_rollout_with_the_stub_generator_matches_jax():
   for i in range(t):
     np.testing.assert_array_equal(gen_t[i], gen_j[i])
     np.testing.assert_allclose(rmse_t[i], rmse_j[i], rtol=1e-5, atol=0)
-  assert splat_cuda.EXACT_LAUNCHES == 0
+  assert tracing.count('splat.exact_launches') == 0
 
 
 # Guidance pixels allowed to differ per frame with the tiny generator: its

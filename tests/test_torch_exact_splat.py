@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.ops import geometry as geometry_t
 from se3ds_torch.ops import splat as t_splat
 from se3ds_torch.ops import splat_cuda
@@ -169,7 +170,8 @@ def test_port_routes_every_exact_mode_to_the_exact_splat():
   fast = geometry_t.project_feats_to_equirectangular(
       feats, xyz, H, W, -1.0, 5.0, splat_mode='fast')
   assert not torch.equal(fast[1], want[1])  # the cloud tells them apart
-  assert splat_cuda.EXACT_LAUNCHES == 0  # CPU tensors never reach it
+  # CPU tensors never reach the kernel.
+  assert tracing.count('splat.exact_launches') == 0
 
 
 def test_order_keys_sort_and_round_trip():

@@ -62,7 +62,7 @@ def test_port_files_found():
           'se3ds_torch/train/tf_bundle.py', 'se3ds_torch/train/tf_import.py',
           'se3ds_torch/convert_tf_checkpoint.py',
           'se3ds_torch/convert_inception.py',
-          'se3ds_torch/utils/math_utils.py'} <= names
+          'se3ds_torch/utils/math_utils.py', 'se3ds_torch/tracing.py'} <= names
 
 
 @pytest.mark.parametrize('name', [

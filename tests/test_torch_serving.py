@@ -31,9 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.models import inference as inference_t
 from se3ds_torch.models import model_config as config_t
-from se3ds_torch.ops import splat_cuda
 from se3ds_tpu.models import generator as generator_j
 from se3ds_tpu.models import inference as inference_j
 from se3ds_tpu.models import model_config as config_j
@@ -239,4 +239,4 @@ def test_cpu_serving_never_launches_the_kernel():
   m = _port_model()
   m.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32))
   m(np.zeros((1, 3), np.float32), add_preds_to_memory=True)
-  assert splat_cuda.LAUNCHES == 0
+  assert tracing.count('splat.fast_launches') == 0
