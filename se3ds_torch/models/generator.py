@@ -3,7 +3,10 @@
 A ResNet encoder with partial convs over the guidance RGB-D (+ blurred
 mask), a 4-conv spectral global context at the bottleneck, and two
 decoders (RGB and depth) sharing the encoder skips. The generator takes
-and returns NHWC tensors and runs NCHW inside. The 7-output contract
+and returns NHWC tensors and runs on NCHW-shaped tensors inside: in
+channels_last (NHWC) memory in eval, where the permuted input is a
+channels_last view that every layer keeps, and in contiguous NCHW memory
+in training, which makes its inputs contiguous. The 7-output contract
 [mu, logvar, kld, depth, seg, depth_seg, rgb] is kept; mu, logvar, kld
 and the two seg outputs are all zero in this release.
 

@@ -33,10 +33,11 @@ second) and `replay`, then `copy_out` (the outputs' clones); and the
 counters `serve.eager_runs`, `serve.captures` and `serve.replays`.
 
 The kernels' launch counters (`splat.fast_launches`,
-`splat.exact_launches`) move only when a wrapper runs, so they move
-while a graph is captured and not when it replays. `run` takes a
-graph's count at capture back out and adds it at each replay: the
-counters count the point passes that ran.
+`splat.exact_launches`) and the generator's convolution counters
+(`generator.convs`, `generator.nchw_convs`) move only when Python runs,
+so they move while a graph is captured and not when it replays. `run`
+takes a graph's count at capture back out and adds it at each replay:
+the counters count the point passes and convolutions that ran.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import torch
 
 from se3ds_torch import tracing
 
-LAUNCH_COUNTERS = ('splat.fast_launches', 'splat.exact_launches')
+LAUNCH_COUNTERS = ('splat.fast_launches', 'splat.exact_launches',
+                   'generator.convs', 'generator.nchw_convs')
 
 
 def _launch_counts() -> Tuple[int, ...]:

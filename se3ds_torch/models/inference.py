@@ -51,6 +51,7 @@ from se3ds_torch import tracing
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import graphs
+from se3ds_torch.models import layers
 from se3ds_torch.models import model_config
 from se3ds_torch.models import spatial
 from se3ds_torch.ops import geometry
@@ -422,11 +423,7 @@ class SE3DSModel:
         generator = torch.Generator(device=self.device).manual_seed(0)
       folding.init_random_(self.model, generator)
       print('Initializing SE3DS model from scratch.')
-    # Conv kernels are stored in the compute dtype once (BatchNorm
-    # parameters and biases stay float32).
-    for param in self.model.parameters():
-      if param.dim() == 4:
-        param.data = param.data.to(dtype)
+    layers.store_served_kernels(self.model, dtype)
     self.model.eval().requires_grad_(False)
     # The state every call reads lives at fixed addresses for the life of
     # the model (a captured graph replays them): the memory buffers and

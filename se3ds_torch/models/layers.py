@@ -1,8 +1,18 @@
 """Generator and discriminator building blocks (port of
 `se3ds_tpu.models.layers`).
 
-All tensors here are NCHW; `generator.ResNetGenerator` and the
-discriminators permute from and to the NHWC layout of the public API.
+All tensors here have the NCHW shape; `generator.ResNetGenerator` and
+the discriminators permute from and to the NHWC layout of the public API.
+Their memory order is the input's, which every layer keeps:
+channels_last (NHWC memory) when serving, where the permuted input is a
+channels_last view and `SE3DSModel` stores the kernels channels_last
+too, so cuDNN runs its NHWC kernels without transposing their operands;
+contiguous NCHW in training, which makes its inputs contiguous. Each
+convolution counts itself in the counters `generator.convs` and
+`generator.nchw_convs` (`se3ds_torch.tracing`; the discriminator's
+convolutions, which run in training only, count too): the second where
+its input or its kernel is not in channels_last memory.
+
 Module and attribute names copy the Flax names (`conv1`, `act1_bn`,
 `block{i}`, `main_convt`, ...), so the state_dict keys of
 `folding.torch_state_dict_from_flax` follow the Flax variable paths.
@@ -45,6 +55,8 @@ import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
+
+from se3ds_torch import tracing
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax/Keras: r = 0.99 * r + 0.01 * batch statistic.
@@ -188,6 +200,31 @@ def mask_window_sum(mask: torch.Tensor, kh: int, kw: int, strides: IntPair,
   return F.avg_pool2d(padded, (kh, kw), stride=(sh, sw), divisor_override=1)
 
 
+def store_served_kernels(module: nn.Module, dtype: torch.dtype) -> None:
+  """Stores every conv kernel (4-D parameter) of `module` once in `dtype`
+  and in channels_last memory, the layout of the served activations, so
+  that no call copies or transposes a kernel. BatchNorm parameters and
+  biases stay float32."""
+  for param in module.parameters():
+    if param.dim() == 4:
+      param.data = param.data.to(dtype, memory_format=torch.channels_last)
+
+
+def _count_conv(x: torch.Tensor, weight: torch.Tensor) -> None:
+  """Counts a convolution of `x` by `weight` in `generator.convs`, and in
+  `generator.nchw_convs` where either is not channels_last memory (a
+  one-channel tensor and a 1x1 kernel are both layouts at once)."""
+  tracing.counter('generator.convs')
+  if not (x.is_contiguous(memory_format=torch.channels_last)
+          and weight.is_contiguous(memory_format=torch.channels_last)):
+    tracing.counter('generator.nchw_convs')
+
+
+def _conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
+  _count_conv(x, weight)
+  return F.conv2d(x, weight, **kwargs)
+
+
 def circular_conv2d(x: torch.Tensor, weight: torch.Tensor, strides: IntPair,
                     pad: int, circular: bool) -> torch.Tensor:
   """`pad2d(x, pad, circular)` followed by a VALID convolution (OIHW).
@@ -196,9 +233,9 @@ def circular_conv2d(x: torch.Tensor, weight: torch.Tensor, strides: IntPair,
   training: no padded copy of `x` is made (and kept for the backward).
   """
   if not circular:
-    return F.conv2d(x, weight, stride=_to_pair(strides), padding=pad)
-  return F.conv2d(pad2d(x, pad, circular_pad=True), weight,
-                  stride=_to_pair(strides))
+    return _conv2d(x, weight, stride=_to_pair(strides), padding=pad)
+  return _conv2d(pad2d(x, pad, circular_pad=True), weight,
+                 stride=_to_pair(strides))
 
 
 def spectral_normalize(w_flat: torch.Tensor, u: torch.Tensor,
@@ -272,14 +309,14 @@ class _Conv(nn.Module):
     kh, kw = weight.shape[-2:]
     if self.padding.upper() != 'SAME':
       x = _pad_for(x, kh, kw, self.strides, self.padding, 0, False)
-      return F.conv2d(x, weight, stride=self.strides)
+      return _conv2d(x, weight, stride=self.strides)
     # The symmetric part of TF's SAME pad is the convolution's own; the
     # odd row and column, after, is padded here.
     top, bottom = _same_pads(x.shape[-2], kh, self.strides[0])
     left, right = _same_pads(x.shape[-1], kw, self.strides[1])
     if bottom > top or right > left:
       x = F.pad(x, (0, right - left, 0, bottom - top))
-    return F.conv2d(x, weight, stride=self.strides, padding=(top, left))
+    return _conv2d(x, weight, stride=self.strides, padding=(top, left))
 
   def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
     if self.bias is None:
@@ -405,12 +442,14 @@ class Conv2DTranspose(nn.Module):
     kh, kw = weight.shape[-2:]
     # conv_transpose2d with padding 0 pads the dilated input by k-1 on
     # both sides; crop (or zero-extend) to the Flax pads.
+    _count_conv(x, weight)
     out = F.conv_transpose2d(x, weight, stride=self.strides)
     crops = []
     for k, s in ((kw, self.strides[1]), (kh, self.strides[0])):
       before, after = self._pads(k, s)
       crops += [before - (k - 1), after - (k - 1)]
-    out = F.pad(out, crops)
+    if any(crops):
+      out = F.pad(out, crops)
     if self.bias is not None:
       out = out + self.bias.to(out.dtype)[:, None, None]
     return out
@@ -498,8 +537,8 @@ def max_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
-  """Keras UpSampling2D() (nearest, x2)."""
-  return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+  """Keras UpSampling2D() (nearest, x2), in the input's memory layout."""
+  return F.interpolate(x, scale_factor=2, mode='nearest')
 
 
 def avg_pool_3x3_stride2_same(x: torch.Tensor) -> torch.Tensor:

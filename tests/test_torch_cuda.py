@@ -19,6 +19,7 @@ from se3ds_torch.models import discriminator as discriminator_lib
 from se3ds_torch.models import folding
 from se3ds_torch.models import generator as generator_lib
 from se3ds_torch.models import inference
+from se3ds_torch.models import layers
 from se3ds_torch.models import model_config
 from se3ds_torch.ops import geometry
 from se3ds_torch.ops import splat
@@ -798,3 +799,41 @@ def test_timed_spans_read_their_device_time(card, monkeypatch, every_s,
   assert len(device) == pairs and min(device) > 0
   assert spans['serve.call.replay']['device_ms'] == []
   tracing.reset()
+
+
+@pytest.mark.cuda
+def test_served_step_runs_no_layout_transposes(card):
+  """The released model's widths in bfloat16: a replayed served step keeps
+  the generator in channels_last memory, so no convolution counts as NCHW
+  and cuDNN transposes no operand into NHWC. The one NHWC-to-NCHW kernel
+  it launches belongs to the depth head's last convolution, which has one
+  output channel (the same memory in both layouts): cuDNN computes it with
+  the channels padded to eight and copies channel 0 out with that kernel."""
+  cfg = dataclasses.replace(model_config.get_config(), ckpt_path=None,
+                            compute_dtype='bfloat16')
+  model = inference.SE3DSModel(cfg)
+  h, w = cfg.image_height, 2 * cfg.image_height
+  rs = np.random.RandomState(6)
+  model.add_to_memory(rs.randint(0, 256, (1, h, w, 3)),
+                      rs.randint(0, 42, (1, h, w, 1)),
+                      rs.uniform(0.1, 0.8, (1, h, w)).astype(np.float32),
+                      np.zeros((1, 3), np.float32))
+  position = np.array([[0.3, 0.1, 0]], np.float32)
+  for _ in range(2):  # the eager warm-up, then the capture
+    model(position)
+  names = ('serve.replays', 'generator.convs', 'generator.nchw_convs')
+  before = [tracing.count(n) for n in names]
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    model(position)
+    torch.cuda.synchronize()
+  moved = [tracing.count(n) - b for n, b in zip(names, before)]
+  assert moved[0] == 1 and moved[1] > 0 and moved[2] == 0
+  kernels = {e.key: e.count for e in prof.key_averages()}
+  assert any('gemm' in k.lower() or 'conv' in k.lower() for k in kernels)
+  assert not [k for k in kernels if 'nchwToNhwc' in k]
+  one_channel = [m for m in model.model.modules()
+                 if isinstance(m, layers._Conv) and m.weight.shape[0] == 1]
+  assert [m.weight.shape for m in one_channel] == [(1, cfg.gen_dims, 3, 3)]
+  assert sum(n for k, n in kernels.items()
+             if 'nhwcToNchw' in k) <= len(one_channel)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from se3ds_torch import tracing
 from se3ds_torch.models import folding as folding_t
 from se3ds_torch.models import generator as generator_t
 from se3ds_torch.models import layers as layers_t
@@ -90,6 +91,33 @@ def test_generator_matches_jax(flax_generator):
   for got, want in zip(out, ref):
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+def test_served_layout_equals_contiguous_nchw(flax_generator, monkeypatch):
+  """The served form (channels_last kernels, the permuted input's
+  channels_last view) runs every convolution in channels_last memory and
+  gives the outputs of the same forward on contiguous NCHW inputs and
+  OIHW kernels, float32, within the tolerance of the JAX comparison."""
+  variables, _, _, cond = flax_generator
+  cond = {k: torch.from_numpy(v) for k, v in cond.items()}
+  served = _port(variables)
+  layers_t.store_served_kernels(served, torch.float32)
+  tracing.reset()
+  with torch.no_grad():
+    got = served(cond)
+  convs = sum(isinstance(m, (layers_t._Conv, layers_t.Conv2DTranspose))
+              for m in served.modules())
+  assert tracing.count('generator.convs') == convs
+  assert tracing.count('generator.nchw_convs') == 0
+  monkeypatch.setattr(generator_t, '_nchw',
+                      lambda x: x.permute(0, 3, 1, 2).contiguous())
+  tracing.reset()
+  with torch.no_grad():
+    want = _port(variables)(cond)
+  assert tracing.count('generator.nchw_convs') == convs
+  tracing.reset()
+  for a, b in zip(got, want):
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
 
 def test_prefolded_variables_give_the_same_model(flax_generator):

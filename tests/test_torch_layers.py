@@ -141,14 +141,22 @@ def test_mask_window_sum_exact(k, s, fused_pad, padding):
   np.testing.assert_array_equal(_nhwc(got), np.asarray(ref))
 
 
-def test_pool_and_upsample_exact():
+@pytest.mark.parametrize('layout', [torch.contiguous_format,
+                                    torch.channels_last])
+def test_pool_and_upsample_exact(layout):
+  """Exact in either memory layout; the upsample equals the
+  `repeat_interleave` form and returns its input's layout."""
   x = np.random.RandomState(3).normal(size=(2, 7, 9, 3)).astype(np.float32)
+  t = _nchw(x).contiguous(memory_format=layout)
   np.testing.assert_array_equal(
-      _nhwc(layers_t.max_pool_2x2_same(_nchw(x))),
+      _nhwc(layers_t.max_pool_2x2_same(t)),
       np.asarray(layers_j.max_pool_2x2_same(jnp.asarray(x))))
+  up = layers_t.upsample_2x_nearest(t)
   np.testing.assert_array_equal(
-      _nhwc(layers_t.upsample_2x_nearest(_nchw(x))),
-      np.asarray(layers_j.upsample_2x_nearest(jnp.asarray(x))))
+      _nhwc(up), np.asarray(layers_j.upsample_2x_nearest(jnp.asarray(x))))
+  assert torch.equal(
+      up, t.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1))
+  assert up.is_contiguous(memory_format=layout)
 
 
 def _load_chain(port, params, stats):

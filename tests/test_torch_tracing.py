@@ -22,6 +22,7 @@ from se3ds_torch.models import discriminator as disc_t
 from se3ds_torch.models import generator as gen_t
 from se3ds_torch.models import graphs
 from se3ds_torch.models import inference as inference_t
+from se3ds_torch.models import layers
 from se3ds_torch.models import model_config as config_t
 from se3ds_torch.train import state as state_t
 
@@ -195,6 +196,13 @@ def test_served_calls_record_their_spans():
   assert tracing.count('serve.calls') == 6
   assert tracing.count('serve.captures') == 1
   assert tracing.count('serve.replays') == 2
+  # The generator ran 4 steps (2 eager, 2 replayed; the capture's
+  # convolutions taken back) and the poses once, every convolution in
+  # channels_last memory.
+  convs = sum(isinstance(m, (layers._Conv, layers.Conv2DTranspose))
+              for m in model.model.modules())
+  assert tracing.count('generator.convs') == 5 * convs > 0
+  assert tracing.count('generator.nchw_convs') == 0
 
 
 def test_a_train_step_records_its_parts():
