@@ -30,7 +30,16 @@ Phases, in order; any failure raises and the process exits non-zero:
      and exactly 2 'fast' point-pass launches per served frame (and no
      exact one), then holds the stage against its plain version on the
      main path's own memory and times it (point passes, resolves, whole
-     stage, plain).
+     stage, plain). The epilogue kernel's launches on this run, every
+     convolution output read by it (`generator.fused_convs` equal to
+     `generator.convs`).
+  4b. The conv epilogue kernel (csrc/epilogue.cu) on the served
+     generator's own calls, phase 4's config run eagerly: one served step
+     (batch 1) and one predict_poses call (batch 8), every call of
+     `layers.epilogue` (each a kernel launch) held torch.equal to
+     `layers.epilogue_plain` on the same inputs; then the kernel's device
+     time per call, the whole call's with the plain body in its place,
+     and the kernel's bytes over the card's memory rate.
   5. The exact splat against its plain version: both forms, torch.equal
      on depth and features, on edge cases (with output void 0 and -1,
      negative features, points beyond depth_scale) and on collision-heavy
@@ -206,6 +215,17 @@ def set_launches(fast=0, exact=0):
     tracing.counter(name, value - tracing.count(name))
 
 
+# The epilogue kernel's launches and the convolutions it reads, of all.
+EPILOGUE_COUNTERS = ('epilogue.launches', 'generator.fused_convs',
+                     'generator.convs')
+EPILOGUE_KERNEL = 'epilogue_kernel'  # csrc/epilogue.cu, by profiler name
+
+
+def zero_counters(names):
+  for name in names:
+    tracing.counter(name, -tracing.count(name))
+
+
 def time_ms(fn, reps, warmup=2):
   """Median over `reps` runs of the device time between CUDA events
   recorded around one call of fn, in ms (host gaps included)."""
@@ -255,6 +275,29 @@ def device_ms(fn, reps=20, attempts=3):
       f'{ms:.4f} ms per call from CUDA events around {reps} back-to-back '
       'calls, host gaps included)')
   return ms
+
+
+def profiled_ms(fn, kernel, reps=5, attempts=3):
+  """(device ms per call of fn, the part of it in kernels whose name
+  holds `kernel`), summed by the profiler. Raises where the profiler
+  records no device time in `attempts` sessions: the kernel's part has
+  no other source."""
+  fn()
+  sync()
+  for _ in range(attempts):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      sync()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in events)
+    if total_us:
+      part_us = sum(e.self_device_time_total for e in events
+                    if kernel in e.key)
+      return total_us / reps / 1e3, part_us / reps / 1e3
+  raise AssertionError(f'the profiler recorded no device time in '
+                       f'{attempts} sessions')
 
 
 def equal_or_raise(name, kernel_outs, plain_outs):
@@ -576,6 +619,7 @@ def phase_serving(inference, model_config, splat_cuda, power):
   phase_ms = {}
 
   set_launches()
+  zero_counters(EPILOGUE_COUNTERS)
   t0 = time.perf_counter()
   model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
                       mask_blurred=True)
@@ -599,6 +643,12 @@ def phase_serving(inference, model_config, splat_cuda, power):
     raise AssertionError(f'{launches} point-pass launches for {frames} '
                          'frames; expected 2 per frame (and no exact one, '
                          f'got {tracing.count(EXACT)})')
+  epilogue_launches, fused, convs = (tracing.count(n)
+                                     for n in EPILOGUE_COUNTERS)
+  if not (fused == convs > 0 and epilogue_launches % frames == 0):
+    raise AssertionError(f'{epilogue_launches} epilogue launches for '
+                         f'{frames} frames, {fused} of {convs} convolution '
+                         'outputs read by them (expected all)')
 
   for out in outs + [traj]:
     lead = (3,) if out is traj else ()
@@ -630,6 +680,9 @@ def phase_serving(inference, model_config, splat_cuda, power):
       f'({power})')
   log(f'  splat point-pass launches on the main path: {launches} ({frames} '
       'frames)')
+  log(f'  epilogue kernel launches on the main path: {epilogue_launches} '
+      f'({epilogue_launches // frames} a frame), reading {fused} of the '
+      f'{convs} convolution outputs')
 
   # The stage against its plain version on the main path's own inputs:
   # the memory as the next frame would splat it.
@@ -652,7 +705,108 @@ def phase_serving(inference, model_config, splat_cuda, power):
                 '== plain)', t, power)
     frame = {k: frame.get(k, 0.0) + v for k, v in t.items()}
   log_timings('main-path splat per served frame', frame, power)
-  return launches, max_err, frame
+  return launches, max_err, frame, epilogue_launches
+
+
+def epilogue_bytes(layers, x, residual, out):
+  """The bytes the epilogue kernel reads and writes in the call
+  `layers.epilogue(x, residual=residual)` that returned `out`: each
+  operand and window sum once, in the output's dtype (as the kernel reads
+  them), and its outputs once; the per-channel constants aside."""
+  tensors = [x.out, x.window_sum, *out]
+  if isinstance(residual, layers.ConvOutput):
+    tensors += [residual.out, residual.window_sum]
+  elif residual is not None:
+    tensors.append(residual)
+  return sum(t.numel() for t in tensors if t is not None) * (
+      out[0].element_size())
+
+
+def phase_epilogue(inference, model_config, power):
+  log('== phase 4b: the conv epilogue kernel on the served generator\'s '
+      'own calls against its plain body (1024x512, gen_dims 128, '
+      'ResNet-101, bf16, batch 1 and 8) ==')
+  from se3ds_torch.models import layers
+  model = inference.SE3DSModel(
+      serving_config(model_config), device='cuda',
+      generator=torch.Generator(device='cuda').manual_seed(0),
+      cuda_graphs=False)
+  rgb, sem, depth = synthetic_pano(H, 0)
+  model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
+                      mask_blurred=True)
+  rs = np.random.RandomState(5)
+  poses = rs.uniform(-0.8, 0.8, (POSES_K, 3)).astype(np.float32)
+  poses[:, 2] *= 0.1
+  position = np.array([[0.25, 0.1, 0.0]], np.float32)
+  calls = {1: lambda: model(position),
+           POSES_K: lambda: model.predict_poses(poses)}
+  real = layers.epilogue
+  seen = {}
+
+  def checked(x, act=None, residual=None, after_act=False, post_bn=None):
+    before = tracing.count('epilogue.launches')
+    out = real(x, act, residual, after_act, post_bn)
+    if tracing.count('epilogue.launches') != before + 1:
+      raise AssertionError(f'epilogue call {seen["calls"]} on '
+                           f'{tuple(x.out.shape)} launched no kernel')
+    want = layers.epilogue_plain(x, act, residual, after_act, post_bn)
+    seen['max_err'] = max(seen['max_err'], equal_or_raise(
+        f'epilogue call {seen["calls"]} on {tuple(x.out.shape)} '
+        f'{x.out.dtype}', out, want))
+    seen['calls'] += 1
+    seen['bytes'] += epilogue_bytes(layers, x, residual, out)
+    seen['shapes'].add(tuple(x.out.shape[1:]))
+    return out
+
+  def plain(x, act=None, residual=None, after_act=False, post_bn=None):
+    return layers.epilogue_plain(x, act, residual, after_act, post_bn)
+
+  results = {}
+  for batch, fn in calls.items():
+    fn()  # warm-up: cuDNN picks its algorithms
+    sync()
+    seen.update(calls=0, bytes=0, max_err=0.0, shapes=set())
+    zero_counters(EPILOGUE_COUNTERS)
+    layers.epilogue = checked
+    try:
+      fn()
+      sync()
+    finally:
+      layers.epilogue = real
+    launches, fused, convs = (tracing.count(n) for n in EPILOGUE_COUNTERS)
+    if not (launches == seen['calls'] > 0 and fused == convs):
+      raise AssertionError(f'batch {batch}: {launches} launches in '
+                           f'{seen["calls"]} checked calls, {fused} of '
+                           f'{convs} convolution outputs fused')
+    call_ms, kernel_ms = profiled_ms(fn, EPILOGUE_KERNEL)
+    layers.epilogue = plain
+    try:
+      plain_call_ms, left_ms = profiled_ms(fn, EPILOGUE_KERNEL)
+    finally:
+      layers.epilogue = real
+    if left_ms:
+      raise AssertionError('the epilogue kernel ran with the plain body in '
+                           'its place')
+    # The call's device time less its kernel's is the rest of the call,
+    # which the plain body's call holds too.
+    plain_ms = plain_call_ms - (call_ms - kernel_ms)
+    bound_ms = seen['bytes'] / HBM_BYTES_PER_S * 1e3
+    channels = sorted(c for c, _, _ in seen['shapes'])
+    maps = sorted({(h, w) for _, h, w in seen['shapes']})
+    log(f'  batch {batch}: {launches} launches, every output torch.equal '
+        f'to the plain body (max |d| {seen["max_err"]}); {fused} of {convs} '
+        f'convolution outputs read; C {channels[0]} to {channels[-1]}, maps '
+        f'{maps[-1]} down to {maps[0]}')
+    log(f'  batch {batch}: kernel {kernel_ms:.4f} ms a call '
+        f'({seen["bytes"] / 1e9:.3f} GB, '
+        f'{seen["bytes"] / kernel_ms / 1e9:.3f} TB/s), bound '
+        f'{bound_ms:.4f} ms, plain body {plain_ms:.4f} ms; the whole call '
+        f'{call_ms:.4f} ms, {plain_call_ms:.4f} ms with the plain body '
+        f'({power})')
+    results[batch] = {'launches': launches, 'max_err': seen['max_err'],
+                      'ms': kernel_ms, 'plain_ms': plain_ms,
+                      'bound_ms': bound_ms}
+  return results
 
 
 def exact_stage(geometry, xyz, feats, offset, void, out_void, height=H,
@@ -2916,8 +3070,9 @@ def main():
 
   max_err = run('2', phase_kernel_parity, splat_cuda, geometry, power)
   run('3', phase_small_vs_cpu, inference, model_config)
-  launches, main_err, fast = run('4', phase_serving, inference,
-                                 model_config, splat_cuda, power)
+  launches, main_err, fast, epilogue_launches = run(
+      '4', phase_serving, inference, model_config, splat_cuda, power)
+  epilogue = run('4b', phase_epilogue, inference, model_config, power)
   exact_err = run('5', phase_exact_parity, splat_cuda, geometry, power)
   exact_launches, rollout_err, exact = run(
       '6', phase_eval, inference, model_config, splat_cuda, power)
@@ -2976,6 +3131,13 @@ def main():
   log('splat stage per served frame without / with the world-1 mesh '
       '(phase 11b, device ms): ' + ', '.join(
           f'{k} {a:.4f} / {b:.4f}' for k, (a, b) in mesh_stage_ms.items()))
+  log('conv epilogue per served generator call (1024x512, bf16, phase '
+      '4b, device ms): ' + ', '.join(
+          f'batch {b}: kernel {e["ms"]:.4f}, plain {e["plain_ms"]:.4f}, '
+          f'bound {e["bound_ms"]:.4f}, {e["launches"]} launches'
+          for b, e in epilogue.items()))
+  log(f'conv epilogue launches: {epilogue_launches} in phase 4 (the kernels '
+      'line counts the main path\'s)')
   log(f'chip_smoke took {time.perf_counter() - START:.1f} s; by phase: '
       + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()))
   log(power)
@@ -2996,7 +3158,14 @@ def main():
                              mesh_err),
           'ms': exact_ms,
           'plain_ms': exact['plain'], 'bound_ms': exact['bound'],
-          'bound_by': 'bytes', 'library_ms': None}]}))
+          'bound_by': 'bytes', 'library_ms': None}, {
+          'name': 'conv_epilogue', 'route': 'cuda',
+          'source': 'se3ds_torch/csrc/epilogue.cu', 'replaces': None,
+          'launches': epilogue_launches,
+          'max_abs_err': max(e['max_err'] for e in epilogue.values()),
+          'ms': epilogue[1]['ms'], 'plain_ms': epilogue[1]['plain_ms'],
+          'bound_ms': epilogue[1]['bound_ms'], 'bound_by': 'bytes',
+          'library_ms': None}]}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

@@ -23,7 +23,6 @@ from __future__ import annotations
 from typing import Dict, List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from se3ds_torch import constants
@@ -76,14 +75,18 @@ class ResNetEncoder(nn.Module):
     self.final_bn = layers.SyncBatchNorm(4 * h)
 
   def _stem(self, x, mask):
-    out, update_mask = self.conv1(x, mask)
-    b1 = F.relu(self.act1_bn(out))
+    out, window_sum = self.conv1.convolve(x, mask)
+    b1, update_mask = layers.epilogue(
+        layers.ConvOutput(out, self.conv1, window_sum, self.act1_bn),
+        layers.RELU)
     return (b1, layers.max_pool_2x2_same(b1),
             layers.max_pool_2x2_same(update_mask))
 
   def _final(self, x, mask):
-    out, _ = self.final_conv(x, mask)
-    return F.relu(self.final_bn(out))
+    out, window_sum = self.final_conv.convolve(x, mask)
+    return layers.epilogue(
+        layers.ConvOutput(out, self.final_conv, window_sum, self.final_bn),
+        layers.RELU)[0]
 
   def forward(self, x, mask=None):
     b1, out, update_mask = layers.remat(self._stem, x, mask,
@@ -134,12 +137,19 @@ class ResNetDecoder(nn.Module):
                                                spectral=False)
     self.final_deconv = layers.Conv2DTranspose(h, output_dim, 2, 2, 'SAME')
 
-  def _agent(self, name: str, x):
-    out, _ = getattr(self, name)(x)
-    return F.relu(getattr(self, f'{name}_bn')(out))
+  def _agent(self, name: str, x, residual=None):
+    """relu(bn(agent(x))), plus `residual` after the activation."""
+    agent = getattr(self, name)
+    out, window_sum = agent.convolve(x)
+    return layers.epilogue(
+        layers.ConvOutput(out, agent, window_sum,
+                          getattr(self, f'{name}_bn')),
+        layers.RELU, residual, after_act=True)[0]
 
   def _upc(self, x):
-    out = F.leaky_relu(self.upc_bn(self.upc_conv(x)), negative_slope=0.2)
+    out, _ = layers.epilogue(
+        layers.ConvOutput(self.upc_conv.convolve(x), self.upc_conv,
+                          bn=self.upc_bn), 0.2)
     return self._agent('agent4', layers.upsample_2x_nearest(out))
 
   def forward(self, x, skip):
@@ -147,14 +157,18 @@ class ResNetDecoder(nn.Module):
     for i in range(4):
       out = getattr(self, f'deconv{i + 1}')(out)
       agent = f'agent{3 - i}'
-      out = out + layers.remat(self._agent, agent, skip[3 - i],
-                               state_of=(getattr(self, agent),))
+      out = layers.remat(self._agent, agent, skip[3 - i], residual=out,
+                         state_of=(getattr(self, agent),))
     out = self.final_conv(out)
     return self.final_deconv(out)
 
 
 class _ConvChain(nn.Module):
-  """(BN, circular 3x3 conv, LeakyReLU 0.3) chain; no activation last."""
+  """(BN, circular 3x3 conv, LeakyReLU 0.3) chain; no activation last.
+
+  Layer i's segment ends with layer i + 1's BatchNorm (layer 0's starts
+  with its own), so that one epilogue follows each convolution.
+  """
 
   def __init__(self, widths: List[int], circular_pad: bool, spectral: bool,
                fold: bool = True):
@@ -168,11 +182,14 @@ class _ConvChain(nn.Module):
                                        circular=circular_pad))
 
   def _layer(self, i: int, x):
-    x = getattr(self, f'conv{i}')(getattr(self, f'bn{i}')(x))
-    if i < self.num_convs - 1:
-      # Keras LeakyReLU() default slope.
-      x = F.leaky_relu(x, negative_slope=0.3)
-    return x
+    if i == 0:
+      x = self.bn0(x)
+    conv = getattr(self, f'conv{i}')
+    if i == self.num_convs - 1:
+      return conv(x)
+    # Keras LeakyReLU() default slope.
+    return layers.epilogue(layers.ConvOutput(conv.convolve(x), conv), 0.3,
+                           post_bn=getattr(self, f'bn{i + 1}'))[0]
 
   def forward(self, x):
     # One segment per layer: the output heads run at full resolution.

@@ -33,8 +33,9 @@ second) and `replay`, then `copy_out` (the outputs' clones); and the
 counters `serve.eager_runs`, `serve.captures` and `serve.replays`.
 
 The kernels' launch counters (`splat.fast_launches`,
-`splat.exact_launches`) and the generator's convolution counters
-(`generator.convs`, `generator.nchw_convs`) move only when Python runs,
+`splat.exact_launches`, `epilogue.launches`) and the generator's
+convolution counters (`generator.convs`, `generator.nchw_convs`,
+`generator.fused_convs`) move only when Python runs,
 so they move while a graph is captured and not when it replays. `run`
 takes a graph's count at capture back out and adds it at each replay:
 the counters count the point passes and convolutions that ran.
@@ -49,7 +50,8 @@ import torch
 from se3ds_torch import tracing
 
 LAUNCH_COUNTERS = ('splat.fast_launches', 'splat.exact_launches',
-                   'generator.convs', 'generator.nchw_convs')
+                   'epilogue.launches', 'generator.convs',
+                   'generator.nchw_convs', 'generator.fused_convs')
 
 
 def _launch_counts() -> Tuple[int, ...]:

@@ -32,7 +32,20 @@ argument:
 * `SyncBatchNorm` normalises with the batch statistics in training and
   updates its running statistics by Flax's rule; under a
   `torch.distributed` process group the statistics are those of the
-  global batch.
+  global batch. At eval it normalises by Flax's formula with the running
+  statistics.
+
+What follows a convolution (a partial convolution's renormalisation, the
+bias, a BatchNorm, the activation, a residual add, the next layer's
+leading BatchNorm) is one call of `epilogue` in every block, in training
+and at eval alike: each convolution module's `convolve` returns its
+output without the bias, and its `forward` is `convolve` and `epilogue`.
+Served (eval, nothing for autograd to record, on the card) that call is
+one launch of a CUDA kernel that reads each convolution output once and
+rounds once, counted in `epilogue.launches`, and the convolution outputs
+it reads in `generator.fused_convs`; elsewhere it is the layers' own ops
+computed in float32 (`epilogue_plain`), the same ops as each layer's
+when the tensors are float32.
 
 Rematerialisation (`remat`, inside `rematerialise()`): the models run
 their blocks as segments of `torch.utils.checkpoint`, which keeps each
@@ -47,7 +60,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Iterable, Optional, Tuple, Union
+from typing import Callable, Iterable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -57,6 +70,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from se3ds_torch import tracing
+from se3ds_torch.ops import epilogue_cuda
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax/Keras: r = 0.99 * r + 0.01 * batch statistic.
@@ -92,7 +106,8 @@ def recomputing() -> bool:
   return getattr(_REMAT, 'recomputing', False)
 
 
-def remat(fn: Callable, *args, state_of: Iterable[nn.Module] = ()):
+def remat(fn: Callable, *args, state_of: Iterable[nn.Module] = (),
+          residual: Optional[torch.Tensor] = None):
   """`fn(*args)`, one checkpointed segment inside `rematerialise()`.
 
   `state_of` are the modules whose state `fn` reads: their `u` buffers
@@ -103,9 +118,14 @@ def remat(fn: Callable, *args, state_of: Iterable[nn.Module] = ()):
   Non-reentrant checkpoints: the train step differentiates with
   `torch.autograd.grad`, which the reentrant variant does not support.
   The models draw no random numbers, so no RNG state is replayed.
+
+  `residual`, a tensor that `fn(*args, residual=residual)` adds to its
+  result (in its epilogue): a checkpointed segment adds it outside,
+  `residual + fn(*args)`, so that the checkpoint holds no more than the
+  segment's own inputs.
   """
   if not (getattr(_REMAT, 'enabled', False) and torch.is_grad_enabled()):
-    return fn(*args)
+    return fn(*args) if residual is None else fn(*args, residual=residual)
   states = [buffer for module in state_of
             for name, buffer in module.named_buffers()
             if name.rsplit('.', 1)[-1] == 'u']
@@ -124,9 +144,10 @@ def remat(fn: Callable, *args, state_of: Iterable[nn.Module] = ()):
       for u, value in zip(states, advanced):
         u.copy_(value)
 
-  return checkpoint_lib.checkpoint(
+  out = checkpoint_lib.checkpoint(
       fn, *args, use_reentrant=False, preserve_rng_state=False,
       context_fn=lambda: (contextlib.nullcontext(), replay()))
+  return out if residual is None else residual + out
 
 
 
@@ -279,6 +300,153 @@ def normalized_kernel(weight: torch.Tensor, u: torch.Tensor
   return w_norm.T.reshape(weight.shape), u_hat
 
 
+# -- what follows a convolution ----------------------------------------------
+
+RELU = 'relu'
+# An epilogue's activation: None, RELU, or a LeakyReLU's negative slope.
+Activation = Union[None, str, float]
+
+
+class ConvOutput(NamedTuple):
+  """A tensor on its way out of a layer, with the ops that follow it.
+
+  out: a convolution's output without its bias, or a tensor that is no
+    convolution's output (`conv` None).
+  conv: the convolution module that made `out`: its bias follows, and
+    with `window_sum` (a `PartialConv`) its renormalisation.
+  window_sum: the mask's window sums of a partial convolution.
+  bn: the `SyncBatchNorm` that follows, or None.
+  """
+  out: torch.Tensor
+  conv: Optional[nn.Module] = None
+  window_sum: Optional[torch.Tensor] = None
+  bn: Optional[nn.Module] = None
+
+
+def epilogue(x: ConvOutput, act: Activation = None,
+             residual: Union[None, torch.Tensor, ConvOutput] = None,
+             after_act: bool = False, post_bn: Optional[nn.Module] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """Everything between one convolution and the next, for every block in
+  training and in serving alike.
+
+  In order: x's partial-conv renormalisation or its bias, then its
+  BatchNorm; `residual` (a tensor, or a second convolution's output
+  settled as x is) added before the activation `act` or, with
+  `after_act`, after it; then `post_bn`, the next layer's leading
+  BatchNorm. Returns (the result in x.out's dtype, x's update mask where
+  x is a partial convolution's output, else None).
+
+  Two routes, by what the call observes. On a CUDA tensor, with every
+  module in eval and nothing for autograd to record, it is one launch of
+  the epilogue kernel (`ops/epilogue_cuda.py`), which reads each
+  convolution output once and counts them in `generator.fused_convs`; a
+  fault there raises. Everywhere else (training, which needs autograd and
+  batch statistics; the CPU) it is `epilogue_plain`, whose bits the
+  kernel gives on the card.
+  """
+  stages = [x] + ([residual] if isinstance(residual, ConvOutput) else [])
+  modules = [m for s in stages for m in (s.conv, s.bn) if m is not None]
+  modules += [post_bn] if post_bn is not None else []
+  tensors = [s.out for s in stages]
+  tensors += [residual] if isinstance(residual, torch.Tensor) else []
+  if (not x.out.is_cuda or any(m.training for m in modules)
+      or _records(tensors, modules)):
+    return epilogue_plain(x, act, residual, after_act, post_bn)
+  if isinstance(residual, torch.Tensor):
+    residual = epilogue_cuda.Operand(residual)
+  elif residual is not None:
+    residual = _operand(residual)
+  code, slope = ((epilogue_cuda.NONE, 0.0) if act is None else
+                 (epilogue_cuda.RELU, 0.0) if act == RELU else
+                 (epilogue_cuda.LEAKY, float(act)))
+  out = epilogue_cuda.launch(_operand(x), residual, code, slope, after_act,
+                             _norm(post_bn))
+  tracing.counter('generator.fused_convs',
+                  sum(s.conv is not None for s in stages))
+  return out
+
+
+def epilogue_plain(x: ConvOutput, act: Activation = None,
+                   residual: Union[None, torch.Tensor, ConvOutput] = None,
+                   after_act: bool = False,
+                   post_bn: Optional[nn.Module] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """`epilogue` as the layers' own ops, on any device, under autograd:
+  computed in float32 (float64 tensors in float64) in the order above
+  and cast back to x.out's dtype once. For float32 and float64 tensors
+  these are exactly the composed ops (a tensor's `.to` its own dtype is
+  the tensor itself), with batch statistics in training."""
+  out, update_mask = _settle(x)
+  if isinstance(residual, ConvOutput):
+    residual = _settle(residual)[0]
+  elif residual is not None:
+    residual = _wide(residual)
+  if residual is not None and not after_act:
+    out = out + residual
+  if act == RELU:
+    out = F.relu(out)
+  elif act is not None:
+    out = F.leaky_relu(out, negative_slope=act)
+  if residual is not None and after_act:
+    out = out + residual
+  if post_bn is not None:
+    out = _normalise(post_bn, out)
+  if update_mask is not None:
+    update_mask = _cast(update_mask, x.window_sum.dtype)
+  return _cast(out, x.out.dtype), update_mask
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+  # The test first spares a training step's hundreds of no-op calls.
+  return x if x.dtype == dtype else x.to(dtype)
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+  """x in float32, or in its own dtype where that is wider (float64)."""
+  return _cast(x, torch.promote_types(x.dtype, torch.float32))
+
+
+def _settle(s: ConvOutput) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+  """s.out in float32 with its renormalisation or bias and its BatchNorm;
+  (that, the update mask or None)."""
+  out, update_mask = _wide(s.out), None
+  if s.window_sum is not None:
+    out, update_mask = s.conv.renormalise(out, _wide(s.window_sum))
+  elif s.conv is not None and s.conv.bias is not None:
+    out = out + s.conv.bias[:, None, None]
+  if s.bn is not None:
+    out = _normalise(s.bn, out)
+  return out, update_mask
+
+
+def _normalise(bn: nn.Module, x: torch.Tensor) -> torch.Tensor:
+  return bn(x) if bn.training else bn.normalise(x)
+
+
+def _records(tensors: Iterable[torch.Tensor],
+             modules: Iterable[nn.Module]) -> bool:
+  """Whether autograd records ops on these tensors or parameters."""
+  return torch.is_grad_enabled() and (
+      any(t.requires_grad for t in tensors) or
+      any(p.requires_grad for m in modules for p in m.parameters(False)))
+
+
+def _norm(bn: Optional[nn.Module]):
+  return None if bn is None else (bn.running_mean, bn.running_var, bn.weight,
+                                  bn.bias)
+
+
+def _operand(s: ConvOutput) -> epilogue_cuda.Operand:
+  area = 1.0
+  if s.window_sum is not None:
+    kh, kw = s.conv.weight.shape[-2:]
+    area = float(kh * kw)
+  return epilogue_cuda.Operand(s.out, s.window_sum, area,
+                               None if s.conv is None else s.conv.bias,
+                               _norm(s.bn))
+
+
 class _Conv(nn.Module):
   """Conv2D with Keras defaults and TF-style padding (OIHW weight)."""
 
@@ -318,17 +486,16 @@ class _Conv(nn.Module):
       x = F.pad(x, (0, right - left, 0, bottom - top))
     return _conv2d(x, weight, stride=self.strides, padding=(top, left))
 
-  def _add_bias(self, out: torch.Tensor) -> torch.Tensor:
-    if self.bias is None:
-      return out
-    return out + self.bias.to(out.dtype)[:, None, None]
+  def convolve(self, x: torch.Tensor) -> torch.Tensor:
+    """The convolution, without the bias (which its epilogue adds)."""
+    return self._conv(x)
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return epilogue(ConvOutput(self.convolve(x), self))[0]
 
 
 class Conv2D(_Conv):
   """Plain Conv2D (glorot kernel, zero bias)."""
-
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
-    return self._add_bias(self._conv(x))
 
 
 class SpectralConv(_Conv):
@@ -348,13 +515,13 @@ class SpectralConv(_Conv):
     self.register_buffer(
         'u', None if fold else torch.empty(1, self.weight.shape[0]))
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def convolve(self, x: torch.Tensor) -> torch.Tensor:
     if self.fold:
-      return self._add_bias(self._conv(x))
+      return self._conv(x)
     weight, u_hat = normalized_kernel(self.weight, self.u)
     if self.training and not recomputing():
       self.u.copy_(u_hat)
-    return self._add_bias(self._conv(x, weight))
+    return self._conv(x, weight)
 
 
 class PartialConv(_Conv):
@@ -374,9 +541,11 @@ class PartialConv(_Conv):
         'u', torch.empty(1, self.weight.shape[0])
         if spectral_norm and not fold else None)
 
-  def forward(self, feature: torch.Tensor,
-              mask: Optional[torch.Tensor] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+  def convolve(self, feature: torch.Tensor,
+               mask: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the convolution of the masked features, without the bias; the
+    mask's window sums), which `renormalise` or an epilogue take."""
     kh, kw = self.weight.shape[-2:]
     if mask is None:
       mask = torch.ones_like(feature[:, :1])
@@ -386,7 +555,13 @@ class PartialConv(_Conv):
     window_sum = mask_window_sum(mask, kh, kw, self.strides,
                                  fused_pad=self.fused_pad,
                                  circular=self.wraps, padding=self.padding)
-    return self.renormalise(self._conv(feature * mask), window_sum)
+    return self._conv(feature * mask), window_sum
+
+  def forward(self, feature: torch.Tensor,
+              mask: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    out, window_sum = self.convolve(feature, mask)
+    return epilogue(ConvOutput(out, self, window_sum))
 
   def renormalise(self, out: torch.Tensor, window_sum: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -394,7 +569,9 @@ class PartialConv(_Conv):
     (without the bias) and the mask's window sums."""
     kh, kw = self.weight.shape[-2:]
     eps = 1e-6
-    mask_ratio = (kh * kw) / (window_sum + eps)
+    # (kh * kw) / (window_sum + eps), as PyTorch divides a number by a
+    # tensor: the reciprocal, then the product.
+    mask_ratio = (window_sum + eps).reciprocal() * (kh * kw)
     update_mask = torch.clamp(window_sum, 0.0, 1.0)
     mask_ratio = mask_ratio * update_mask
     if self.bias is not None:
@@ -437,7 +614,8 @@ class Conv2DTranspose(nn.Module):
       pad_a = k - 1
     return pad_a, pad_len - pad_a
 
-  def forward(self, x: torch.Tensor) -> torch.Tensor:
+  def convolve(self, x: torch.Tensor) -> torch.Tensor:
+    """The transposed convolution, without the bias."""
     weight = self.weight.to(x.dtype)
     kh, kw = weight.shape[-2:]
     # conv_transpose2d with padding 0 pads the dilated input by k-1 on
@@ -450,9 +628,10 @@ class Conv2DTranspose(nn.Module):
       crops += [before - (k - 1), after - (k - 1)]
     if any(crops):
       out = F.pad(out, crops)
-    if self.bias is not None:
-      out = out + self.bias.to(out.dtype)[:, None, None]
     return out
+
+  def forward(self, x: torch.Tensor) -> torch.Tensor:
+    return epilogue(ConvOutput(self.convolve(x), self))[0]
 
 
 class SyncBatchNorm(nn.Module):
@@ -479,9 +658,7 @@ class SyncBatchNorm(nn.Module):
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     if not self.training:
-      return F.batch_norm(x, self.running_mean, self.running_var,
-                          self.weight, self.bias, training=False,
-                          eps=BN_EPSILON)
+      return epilogue(ConvOutput(x, bn=self))[0]
     if dist.is_initialized():
       return self._global_batch_norm(x)
     if not recomputing():
@@ -490,6 +667,15 @@ class SyncBatchNorm(nn.Module):
         self._update_statistics(mean, var)
     return F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                         eps=BN_EPSILON)
+
+  def normalise(self, x: torch.Tensor) -> torch.Tensor:
+    """The eval normalisation in Flax's formula, (x - mean) * mul + bias
+    with mul = rsqrt(var + eps) * weight per channel, in x's dtype; the
+    reciprocal square root is the correctly rounded reciprocal of the
+    correctly rounded square root, as the epilogue kernel computes it."""
+    mul = torch.sqrt(self.running_var + BN_EPSILON).reciprocal() * self.weight
+    return ((x - self.running_mean[:, None, None]) * mul[:, None, None]
+            + self.bias[:, None, None])
 
   @torch.no_grad()
   def _update_statistics(self, mean: torch.Tensor, var: torch.Tensor):
@@ -581,17 +767,20 @@ class Bottleneck(nn.Module):
       self.downsample = None
 
   def forward(self, x, mask=None):
-    out, update_mask = self.conv1(x, mask)
-    out = F.relu(self.act1_bn(out))
-    out, update_mask = self.conv2(out, update_mask)
-    out = F.relu(self.act2_bn(out))
-    out, update_mask = self.conv3(out, update_mask)
-    out = self.act3_bn(out)
+    out, window_sum = self.conv1.convolve(x, mask)
+    out, update_mask = epilogue(
+        ConvOutput(out, self.conv1, window_sum, self.act1_bn), RELU)
+    out, window_sum = self.conv2.convolve(out, update_mask)
+    out, update_mask = epilogue(
+        ConvOutput(out, self.conv2, window_sum, self.act2_bn), RELU)
+    out, window_sum = self.conv3.convolve(out, update_mask)
     residual = x
     if self.downsample is not None:
-      residual, _ = self.downsample(x, mask)
-      residual = self.ds_norm(residual)
-    return F.relu(out + residual), update_mask
+      ds_out, ds_window_sum = self.downsample.convolve(x, mask)
+      residual = ConvOutput(ds_out, self.downsample, ds_window_sum,
+                            self.ds_norm)
+    return epilogue(ConvOutput(out, self.conv3, window_sum, self.act3_bn),
+                    RELU, residual)
 
 
 class ResStack(nn.Module):
@@ -657,14 +846,16 @@ class TransBasicBlock(nn.Module):
       self.up_bn = SyncBatchNorm(planes)
 
   def forward(self, x):
-    out = F.relu(self.main_bn1(self.main_conv1(x)))
+    out, _ = epilogue(ConvOutput(self.main_conv1.convolve(x), self.main_conv1,
+                                 bn=self.main_bn1), RELU)
     up = self.main_convt if hasattr(self, 'main_convt') else self.main_conv2
-    out = self.main_bn2(up(out))
+    out = up.convolve(out)
     residual = x
     if self.has_upsample:
       res = self.up_convt if hasattr(self, 'up_convt') else self.up_conv
-      residual = self.up_bn(res(x))
-    return F.relu(out + residual)
+      residual = ConvOutput(res.convolve(x), res, bn=self.up_bn)
+    out, _ = epilogue(ConvOutput(out, up, bn=self.main_bn2), RELU, residual)
+    return out
 
 
 class ResStackTranspose(nn.Module):

@@ -5,8 +5,10 @@ inserts the halo exchanges; se3ds_tpu/models/inference.py:688-697).
 
 Every map of the forward pass is split by rows over the group: rank r
 holds rows [R*r // n, R*(r+1) // n) of a map of R rows (`Rows.band`),
-the whole width, and every channel. Elementwise layers (eval BatchNorm,
-activations, sums) run on the band. A layer that reads across a band
+the whole width, and every channel. Elementwise layers run on the band:
+what follows each convolution (its bias or partial-conv renormalisation,
+eval BatchNorm, activation, residual add) is the blocks' own
+`layers.epilogue` call on the band tensors, as in `generator`. A layer that reads across a band
 edge (a convolution or partial convolution of kernel height > 1 or
 stride > 1, a transposed convolution, the 2x2 max pool, the nearest
 upsample) first fetches the input rows its output band reads from the
@@ -34,7 +36,7 @@ differ from it by float rounding (the JAX package allows `pred_depth`
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -167,16 +169,18 @@ def _conv_window(rows_: Rows, module, band: Band):
 
 
 def conv(rows_: Rows, module, band: Band) -> Band:
-  """A `Conv2D` or folded `SpectralConv` on a band."""
+  """A `Conv2D` or folded `SpectralConv` on a band, without its bias
+  (its `epilogue` adds it)."""
   x, out_rows, kept = _conv_window(rows_, module, band)
-  out = F.conv2d(x, module.weight.to(x.dtype), stride=module.strides)
-  return Band(module._add_bias(out[:, :, :kept]), out_rows)
+  out = layers._conv2d(x, module.weight.to(x.dtype), stride=module.strides)
+  return Band(out[:, :, :kept], out_rows)
 
 
 def partial_conv(rows_: Rows, module: layers.PartialConv, band: Band,
-                 mask: Optional[Band] = None) -> Tuple[Band, Band]:
+                 mask: Optional[Band] = None) -> Tuple[Band, torch.Tensor]:
   """A `PartialConv` on a band: the masked features and the mask in one
-  window; returns (out, update_mask)."""
+  window; returns (the convolution without its bias, the mask's window
+  sums), which its `epilogue` takes."""
   if mask is None:
     mask = band.map(lambda x: torch.ones_like(x[:, :1]))
   both = Band(torch.cat([band.x * mask.x, mask.x], dim=1), band.rows)
@@ -184,18 +188,17 @@ def partial_conv(rows_: Rows, module: layers.PartialConv, band: Band,
   kh, kw = module.weight.shape[-2:]
   window_sum = F.avg_pool2d(x[:, -1:], (kh, kw), stride=module.strides,
                             divisor_override=1)
-  out = F.conv2d(x[:, :-1], module.weight.to(x.dtype), stride=module.strides)
-  out, update_mask = module.renormalise(out[:, :, :kept],
-                                        window_sum[:, :, :kept])
-  return Band(out, out_rows), Band(update_mask, out_rows)
+  out = layers._conv2d(x[:, :-1], module.weight.to(x.dtype),
+                       stride=module.strides)
+  return Band(out[:, :, :kept], out_rows), window_sum[:, :, :kept]
 
 
 def conv_transpose(rows_: Rows, module: layers.Conv2DTranspose,
                    band: Band) -> Band:
-  """A `Conv2DTranspose` on a band. Output row o is row t = o + kh - 1 -
-  before of the whole transposed convolution (before: the module's
-  leading height pad), which input rows i with i*sh <= t < i*sh + kh
-  feed."""
+  """A `Conv2DTranspose` on a band, without its bias (its `epilogue`
+  adds it). Output row o is row t = o + kh - 1 - before of the whole
+  transposed convolution (before: the module's leading height pad),
+  which input rows i with i*sh <= t < i*sh + kh feed."""
   weight = module.weight
   kh, kw = weight.shape[-2:]
   sh, sw = module.strides
@@ -209,15 +212,13 @@ def conv_transpose(rows_: Rows, module: layers.Conv2DTranspose,
       lambda o0, o1: ((o0 + shift - kh + 1) // sh, (o1 - 1 + shift) // sh + 1),
       0.0)
   first = (o0 + shift - kh + 1) // sh
-  out = F.conv_transpose2d(window, weight.to(window.dtype),
-                           stride=module.strides)
+  weight = weight.to(window.dtype)
+  layers._count_conv(window, weight)
+  out = F.conv_transpose2d(window, weight, stride=module.strides)
   w_before, w_after = module._pads(kw, sw)
   out = F.pad(out, (w_before - (kw - 1), w_after - (kw - 1)))
   start = o0 + shift - first * sh
-  out = out[:, :, start:start + kept]
-  if module.bias is not None:
-    out = out + module.bias.to(out.dtype)[:, None, None]
-  return Band(out, out_rows)
+  return Band(out[:, :, start:start + kept], out_rows)
 
 
 def max_pool_2x2_same(rows_: Rows, band: Band) -> Band:
@@ -244,19 +245,39 @@ def upsample_2x_nearest(rows_: Rows, band: Band) -> Band:
 # -- the generator's blocks on bands (their `forward`s, eval) ---------------
 
 
+def epilogue(out: Band, module=None,
+             window_sum: Optional[torch.Tensor] = None, bn=None,
+             act: layers.Activation = None,
+             residual: Union[None, torch.Tensor, layers.ConvOutput] = None,
+             after_act: bool = False, post_bn=None
+             ) -> Tuple[Band, Optional[Band]]:
+  """`layers.epilogue(ConvOutput(out.x, module, window_sum, bn), act,
+  residual, after_act, post_bn)` on a band (`module` made `out`);
+  returns (the result, the update mask of a partial convolution or None)
+  as bands."""
+  x, update_mask = layers.epilogue(
+      layers.ConvOutput(out.x, module, window_sum, bn), act, residual,
+      after_act, post_bn)
+  return (Band(x, out.rows),
+          None if update_mask is None else Band(update_mask, out.rows))
+
+
 def bottleneck(rows_: Rows, block: layers.Bottleneck, x: Band,
                mask: Optional[Band]) -> Tuple[Band, Band]:
-  out, update_mask = partial_conv(rows_, block.conv1, x, mask)
-  out = out.map(lambda t: F.relu(block.act1_bn(t)))
-  out, update_mask = partial_conv(rows_, block.conv2, out, update_mask)
-  out = out.map(lambda t: F.relu(block.act2_bn(t)))
-  out, update_mask = partial_conv(rows_, block.conv3, out, update_mask)
-  out = out.map(block.act3_bn)
-  residual = x
+  out, window_sum = partial_conv(rows_, block.conv1, x, mask)
+  out, update_mask = epilogue(out, block.conv1, window_sum, block.act1_bn,
+                              layers.RELU)
+  out, window_sum = partial_conv(rows_, block.conv2, out, update_mask)
+  out, update_mask = epilogue(out, block.conv2, window_sum, block.act2_bn,
+                              layers.RELU)
+  out, window_sum = partial_conv(rows_, block.conv3, out, update_mask)
+  residual = x.x
   if block.downsample is not None:
-    residual, _ = partial_conv(rows_, block.downsample, x, mask)
-    residual = residual.map(block.ds_norm)
-  return Band(F.relu(out.x + residual.x), out.rows), update_mask
+    ds_out, ds_window_sum = partial_conv(rows_, block.downsample, x, mask)
+    residual = layers.ConvOutput(ds_out.x, block.downsample, ds_window_sum,
+                                 block.ds_norm)
+  return epilogue(out, block.conv3, window_sum, block.act3_bn, layers.RELU,
+                  residual)
 
 
 def res_stack(rows_: Rows, stack: layers.ResStack, x: Band,
@@ -266,23 +287,26 @@ def res_stack(rows_: Rows, stack: layers.ResStack, x: Band,
   return x, mask
 
 
+def _conv_any(rows_: Rows, module, band: Band) -> Band:
+  """A `Conv2DTranspose` or a `_Conv` on a band, without its bias."""
+  if isinstance(module, layers.Conv2DTranspose):
+    return conv_transpose(rows_, module, band)
+  return conv(rows_, module, band)
+
+
 def trans_basic_block(rows_: Rows, block: layers.TransBasicBlock,
                       x: Band) -> Band:
-  out = conv(rows_, block.main_conv1, x).map(
-      lambda t: F.relu(block.main_bn1(t)))
-  if hasattr(block, 'main_convt'):
-    out = conv_transpose(rows_, block.main_convt, out)
-  else:
-    out = conv(rows_, block.main_conv2, out)
-  out = out.map(block.main_bn2)
-  residual = x
+  out, _ = epilogue(conv(rows_, block.main_conv1, x), block.main_conv1,
+                    bn=block.main_bn1, act=layers.RELU)
+  up = block.main_convt if hasattr(block, 'main_convt') else block.main_conv2
+  out = _conv_any(rows_, up, out)
+  residual = x.x
   if block.has_upsample:
-    if hasattr(block, 'up_convt'):
-      residual = conv_transpose(rows_, block.up_convt, x)
-    else:
-      residual = conv(rows_, block.up_conv, x)
-    residual = residual.map(block.up_bn)
-  return Band(F.relu(out.x + residual.x), out.rows)
+    res = block.up_convt if hasattr(block, 'up_convt') else block.up_conv
+    residual = layers.ConvOutput(_conv_any(rows_, res, x).x, res,
+                                 bn=block.up_bn)
+  return epilogue(out, up, bn=block.main_bn2, act=layers.RELU,
+                  residual=residual)[0]
 
 
 def res_stack_transpose(rows_: Rows, stack: layers.ResStackTranspose,
@@ -294,8 +318,9 @@ def res_stack_transpose(rows_: Rows, stack: layers.ResStackTranspose,
 
 def encoder(rows_: Rows, enc: generator_lib.ResNetEncoder, x: Band,
             mask: Band) -> Tuple[Band, List[Band]]:
-  out, update_mask = partial_conv(rows_, enc.conv1, x, mask)
-  b1 = out.map(lambda t: F.relu(enc.act1_bn(t)))
+  out, window_sum = partial_conv(rows_, enc.conv1, x, mask)
+  b1, update_mask = epilogue(out, enc.conv1, window_sum, enc.act1_bn,
+                             layers.RELU)
   out = max_pool_2x2_same(rows_, b1)
   update_mask = max_pool_2x2_same(rows_, update_mask)
   skips = [b1]
@@ -303,34 +328,44 @@ def encoder(rows_: Rows, enc: generator_lib.ResNetEncoder, x: Band,
     out, update_mask = res_stack(rows_, getattr(enc, f'stack{i}'), out,
                                  update_mask)
     skips.append(out)
-  out, _ = partial_conv(rows_, enc.final_conv, out, update_mask)
-  return out.map(lambda t: F.relu(enc.final_bn(t))), skips[:4]
+  out, window_sum = partial_conv(rows_, enc.final_conv, out, update_mask)
+  return epilogue(out, enc.final_conv, window_sum, enc.final_bn,
+                  layers.RELU)[0], skips[:4]
 
 
 def decoder(rows_: Rows, dec: generator_lib.ResNetDecoder, x: Band,
             skip: List[Band]) -> Band:
-  def agent(name, t):
-    out, _ = partial_conv(rows_, getattr(dec, name), t)
-    return out.map(lambda u: F.relu(getattr(dec, f'{name}_bn')(u)))
+  def agent(name, t, residual=None):
+    """relu(bn(agent(t))), plus `residual` after the activation."""
+    module = getattr(dec, name)
+    out, window_sum = partial_conv(rows_, module, t)
+    return epilogue(out, module, window_sum, getattr(dec, f'{name}_bn'),
+                    layers.RELU, residual, after_act=True)[0]
 
-  out = conv(rows_, dec.upc_conv, x).map(
-      lambda t: F.leaky_relu(dec.upc_bn(t), negative_slope=0.2))
+  out, _ = epilogue(conv(rows_, dec.upc_conv, x), dec.upc_conv,
+                    bn=dec.upc_bn, act=0.2)
   out = agent('agent4', upsample_2x_nearest(rows_, out))
   for i in range(4):
     out = res_stack_transpose(rows_, getattr(dec, f'deconv{i + 1}'), out)
-    out = Band(out.x + agent(f'agent{3 - i}', skip[3 - i]).x, out.rows)
+    out = agent(f'agent{3 - i}', skip[3 - i], out.x)
   out = res_stack_transpose(rows_, dec.final_conv, out)
-  return conv_transpose(rows_, dec.final_deconv, out)
+  return epilogue(conv_transpose(rows_, dec.final_deconv, out),
+                  dec.final_deconv)[0]
 
 
 def conv_chain(rows_: Rows, chain: generator_lib._ConvChain,
                x: Band) -> Band:
-  for i in range(chain.num_convs):
-    x = conv(rows_, getattr(chain, f'conv{i}'),
-             x.map(getattr(chain, f'bn{i}')))
-    if i < chain.num_convs - 1:
-      x = x.map(lambda t: F.leaky_relu(t, negative_slope=0.3))
-  return x
+  """`_ConvChain` on a band: layer i's epilogue ends with layer i + 1's
+  BatchNorm, as in its `_layer`."""
+  x = x.map(chain.bn0)
+  last = chain.num_convs - 1
+  for i in range(last):
+    module = getattr(chain, f'conv{i}')
+    # Keras LeakyReLU() default slope.
+    x, _ = epilogue(conv(rows_, module, x), module, act=0.3,
+                    post_bn=getattr(chain, f'bn{i + 1}'))
+  module = getattr(chain, f'conv{last}')
+  return epilogue(conv(rows_, module, x), module)[0]
 
 
 @torch.no_grad()

@@ -58,18 +58,15 @@ def library_path(name: str) -> Path:
   return BUILD_DIR / f'lib{Path(name).stem}_{digest.hexdigest()[:16]}.so'
 
 
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-  """Compiles each named source (default: all) whose library is missing.
-
-  The compilations run in parallel. The compiler's output (register and
-  shared-memory use from -Xptxas=-v) is kept beside each library as
-  `<library>.log`. Raises RuntimeError naming the source on failure.
-  """
-  names = sources() if names is None else list(names)
+def _compile(names: Iterable[str]) -> Dict[str, str]:
+  """Compiles, in parallel, each named source whose library is missing;
+  returns {source: nvcc's output} for those that failed. The compiler's
+  output (register and shared-memory use from -Xptxas=-v) is kept beside
+  each library as `<library>.log`."""
   BUILD_DIR.mkdir(parents=True, exist_ok=True)
-  paths = {name: library_path(name) for name in names}
   running = []
-  for name, out in paths.items():
+  for name in names:
+    out = library_path(name)
     if out.exists():
       continue
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
@@ -77,21 +74,42 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     running.append((name, out, tmp, proc))
-  failures = []
+  failures = {}
   for name, out, tmp, proc in running:
     log, _ = proc.communicate()
     out.with_name(out.name + '.log').write_text(log)
     if proc.returncode != 0:
-      failures.append(f'{name}:\n{log}')
+      failures[name] = log
       continue
     os.replace(tmp, out)
+  return failures
+
+
+def _raise_for(failures: Dict[str, str]) -> None:
   if failures:
-    raise RuntimeError('nvcc failed for ' + '\n'.join(failures))
-  return paths
+    raise RuntimeError('nvcc failed for ' + '\n'.join(
+        f'{name}:\n{log}' for name, log in failures.items()))
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+  """Compiles each named source (default: all) whose library is missing,
+  in parallel; returns {source: library}. Raises RuntimeError naming the
+  sources that failed."""
+  names = sources() if names is None else list(names)
+  _raise_for(_compile(names))
+  return {name: library_path(name) for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-  """The library built from csrc/<name>, built first if needed."""
+  """The library built from csrc/<name>. Where it is missing, every
+  missing library is compiled first, in parallel, so that a process's
+  first kernels wait for one round of nvcc; only this source's failure
+  raises here (another source raises when it is loaded)."""
   if name not in _LOADED:
-    _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
+    path = library_path(name)
+    if not path.exists():
+      failures = _compile(sources())
+      if name in failures:
+        _raise_for({name: failures[name]})
+    _LOADED[name] = ctypes.CDLL(str(path))
   return _LOADED[name]

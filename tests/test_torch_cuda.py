@@ -27,8 +27,11 @@ from se3ds_torch.ops import splat_cuda
 from se3ds_torch.train import checkpoints
 from se3ds_torch.train import state as state_lib
 from se3ds_torch.train import trainer as trainer_lib
+from test_torch_epilogue import CASES as EPILOGUE_CASES
+from test_torch_epilogue import _Case as EpilogueCase
 
 FAST, EXACT = 'splat.fast_launches', 'splat.exact_launches'
+FUSED = ('epilogue.launches', 'generator.fused_convs')
 
 
 @pytest.fixture
@@ -801,14 +804,14 @@ def test_timed_spans_read_their_device_time(card, monkeypatch, every_s,
   tracing.reset()
 
 
-@pytest.mark.cuda
-def test_served_step_runs_no_layout_transposes(card):
-  """The released model's widths in bfloat16: a replayed served step keeps
-  the generator in channels_last memory, so no convolution counts as NCHW
-  and cuDNN transposes no operand into NHWC. The one NHWC-to-NCHW kernel
-  it launches belongs to the depth head's last convolution, which has one
-  output channel (the same memory in both layouts): cuDNN computes it with
-  the channels padded to eight and copies channel 0 out with that kernel."""
+@pytest.fixture(scope='module')
+def served_step():
+  """The released model's widths in bfloat16 (gen_dims 128, ResNet-101,
+  1024x512): one replayed served step under the profiler. Yields (model,
+  config, how far each counter moved, the step's kernel launches by
+  name)."""
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA card: the CUDA kernels have no CPU mode')
   cfg = dataclasses.replace(model_config.get_config(), ckpt_path=None,
                             compute_dtype='bfloat16')
   model = inference.SE3DSModel(cfg)
@@ -821,15 +824,30 @@ def test_served_step_runs_no_layout_transposes(card):
   position = np.array([[0.3, 0.1, 0]], np.float32)
   for _ in range(2):  # the eager warm-up, then the capture
     model(position)
-  names = ('serve.replays', 'generator.convs', 'generator.nchw_convs')
+  names = ('serve.replays', 'generator.convs', 'generator.nchw_convs') + FUSED
   before = [tracing.count(n) for n in names]
   with torch.profiler.profile(
       activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
     model(position)
     torch.cuda.synchronize()
-  moved = [tracing.count(n) - b for n, b in zip(names, before)]
-  assert moved[0] == 1 and moved[1] > 0 and moved[2] == 0
+  moved = {n: tracing.count(n) - b for n, b in zip(names, before)}
   kernels = {e.key: e.count for e in prof.key_averages()}
+  yield model, cfg, moved, kernels
+  del model
+  torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_served_step_runs_no_layout_transposes(served_step):
+  """The released model's widths in bfloat16: a replayed served step keeps
+  the generator in channels_last memory, so no convolution counts as NCHW
+  and cuDNN transposes no operand into NHWC. The one NHWC-to-NCHW kernel
+  it launches belongs to the depth head's last convolution, which has one
+  output channel (the same memory in both layouts): cuDNN computes it with
+  the channels padded to eight and copies channel 0 out with that kernel."""
+  model, cfg, moved, kernels = served_step
+  assert moved['serve.replays'] == 1 and moved['generator.convs'] > 0
+  assert moved['generator.nchw_convs'] == 0
   assert any('gemm' in k.lower() or 'conv' in k.lower() for k in kernels)
   assert not [k for k in kernels if 'nchwToNhwc' in k]
   one_channel = [m for m in model.model.modules()
@@ -837,3 +855,71 @@ def test_served_step_runs_no_layout_transposes(card):
   assert [m.weight.shape for m in one_channel] == [(1, cfg.gen_dims, 3, 3)]
   assert sum(n for k, n in kernels.items()
              if 'nhwcToNchw' in k) <= len(one_channel)
+
+
+@pytest.mark.cuda
+def test_served_step_fuses_every_conv_epilogue(served_step):
+  """In a replayed served step the epilogue kernel reads every
+  convolution's output (`generator.fused_convs` moves by exactly
+  `generator.convs`), and PyTorch's BatchNorm kernels never run."""
+  _, _, moved, kernels = served_step
+  assert moved['generator.fused_convs'] == moved['generator.convs'] > 0
+  assert moved['epilogue.launches'] >= moved['generator.convs'] // 2
+  assert [k for k in kernels if 'conv_epilogue' in k or
+          'epilogue_kernel' in k]
+  assert not [k for k in kernels if 'batch_norm' in k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bfloat16', 'float32'])
+@pytest.mark.parametrize('name', EPILOGUE_CASES)
+def test_epilogue_kernel_equals_its_plain_body(card, name, dtype):
+  """Every epilogue the generator runs, at the served widths (gen_dims
+  128: 128 channels in, 512 out; a 64x128 map, batch 2; kernels and
+  activations in channels_last memory): the kernel's output and update
+  mask are torch.equal to its plain body's on the same convolution
+  outputs, and to the composed ops in float32 rounded once. Tolerance:
+  none (the same float32 operations, each rounded to nearest)."""
+  case = EpilogueCase(name, dtype, c_in=128, c=512,
+                      shape=(2, 64, 128)).to(card).eval()
+  before = [tracing.count(n) for n in FUSED]
+  with torch.no_grad():
+    got = case.new()
+    torch.cuda.synchronize()
+    moved = [tracing.count(n) - b for n, b in zip(FUSED, before)]
+    want = case.new(layers.epilogue_plain)
+    composed = case.parent()
+  convs = (0 if name == 'bn_only' else 2 if hasattr(case, 'res') else 1)
+  assert moved == [1, convs]
+  for other in (want, composed):
+    assert got[0].dtype == other[0].dtype
+    assert torch.equal(got[0], other[0])
+    assert (got[1] is None) == (other[1] is None)
+    if got[1] is not None:
+      assert torch.equal(got[1], other[1])
+
+
+@pytest.mark.cuda
+def test_epilogue_kernel_only_where_nothing_is_recorded(card):
+  """A generator on the card launches the epilogue kernel only at eval
+  with nothing for autograd to record: a train-mode forward and backward
+  and an eval forward under autograd run the layers' own ops."""
+  gen = generator_lib.ResNetGenerator(gen_dims=4, z_dim=2,
+                                      resnet_version='tiny',
+                                      spectral_fold=False).to(card)
+  folding.init_random_(gen, torch.Generator(device=card).manual_seed(0))
+  rs = np.random.RandomState(1)
+  cond = {k: torch.from_numpy(rs.rand(2, 32, 64, c).astype(
+      np.float32)).to(card) for k, c in (
+          ('proj_image', 3), ('proj_depth', 1), ('proj_mask', 1),
+          ('blurred_mask', 1))}
+  before = tracing.count('epilogue.launches')
+  out = gen.train()(cond)
+  torch.autograd.grad(out[6].sum(), list(gen.parameters()),
+                      allow_unused=True)
+  gen.eval()(cond)[6].sum().backward()
+  assert tracing.count('epilogue.launches') == before
+  with torch.no_grad():
+    gen(cond)
+  assert tracing.count('epilogue.launches') > before

@@ -2,6 +2,8 @@
 
 import ast
 import pathlib
+import shutil
+import sys
 
 import pytest
 
@@ -39,6 +41,7 @@ def test_port_imports_no_jax(path):
 def test_port_files_found():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
   assert {'se3ds_torch/ops/splat_cuda.py', 'se3ds_torch/models/inference.py',
+          'se3ds_torch/ops/epilogue_cuda.py',
           'se3ds_torch/eval/metrics.py', 'se3ds_torch/eval/inception.py',
           'se3ds_torch/eval/fid.py', 'se3ds_torch/models/discriminator.py',
           'se3ds_torch/train/losses.py', 'se3ds_torch/train/state.py',
@@ -88,11 +91,16 @@ def test_kernel_build_flags():
   assert '-fmad' not in flags
   for bad in ('fast_math', 'prec-div=false', 'prec-sqrt=false'):
     assert bad not in flags
-  assert cuda_build.sources() == ['splat.cu', 'splat_exact.cu']
+  assert cuda_build.sources() == ['epilogue.cu', 'splat.cu',
+                                  'splat_exact.cu']
   header = (cuda_build.CSRC_DIR / 'pixel.cuh').read_text()
   for intrinsic in ('__fadd_rn', '__fsub_rn', '__fmul_rn', '__fdiv_rn',
                     '__fsqrt_rn'):
     assert intrinsic in header
+  epilogue = (cuda_build.CSRC_DIR / 'epilogue.cu').read_text()
+  for intrinsic in ('__fadd_rn', '__fsub_rn', '__fmul_rn', '__frcp_rn',
+                    '__fsqrt_rn'):
+    assert intrinsic in epilogue
 
 
 def test_library_name_follows_the_source():
@@ -100,6 +108,39 @@ def test_library_name_follows_the_source():
   assert path.parent == cuda_build.BUILD_DIR
   assert path.name.startswith('libsplat_') and path.suffix == '.so'
   assert path == cuda_build.library_path('splat.cu')
+
+
+def test_load_fails_only_with_its_own_source(tmp_path, monkeypatch):
+  """`load` compiles every missing source in one round, and raises only
+  where the source it loads failed: a broken source beside it does not
+  keep it from loading, and raises when it is loaded itself."""
+  csrc, build = tmp_path / 'csrc', tmp_path / 'build'
+  csrc.mkdir()
+  (csrc / 'good.cu').write_text('extern "C" int answer() { return 42; }\n')
+  (csrc / 'bad.cu').write_text('this is not C\n')
+  gxx = shutil.which('g++')
+  assert gxx, 'g++ builds the native data loader too'
+  # A stand-in for nvcc: g++ on the source, whatever nvcc's flags.
+  fake = tmp_path / 'nvcc'
+  fake.write_text(f"""#!{sys.executable}
+import subprocess, sys
+out = sys.argv[sys.argv.index('-o') + 1]
+sys.exit(subprocess.call(['{gxx}', '-shared', '-fPIC', '-x', 'c++', '-o',
+                          out, sys.argv[-1]]))
+""")
+  fake.chmod(0o755)
+  monkeypatch.setattr(cuda_build, 'CSRC_DIR', csrc)
+  monkeypatch.setattr(cuda_build, 'BUILD_DIR', build)
+  monkeypatch.setattr(cuda_build, '_nvcc', lambda: str(fake))
+  monkeypatch.setattr(cuda_build, '_LOADED', {})
+  assert cuda_build.load('good.cu').answer() == 42
+  assert cuda_build.library_path('good.cu').exists()
+  assert not cuda_build.library_path('bad.cu').exists()
+  with pytest.raises(RuntimeError, match='bad.cu') as failed:
+    cuda_build.load('bad.cu')
+  assert 'good.cu' not in str(failed.value)
+  with pytest.raises(RuntimeError, match='bad.cu'):
+    cuda_build.build()
 
 
 def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
