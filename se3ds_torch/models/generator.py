@@ -20,13 +20,14 @@ one power iteration per call, equal to the folded form).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from se3ds_torch import constants
 from se3ds_torch.models import layers
+from se3ds_torch.models import spatial
 
 RESNET_ENCODER_FILTERS = {
     'tiny': (1, 1, 1, 1),
@@ -237,6 +238,10 @@ class ResNetGenerator(nn.Module):
   Returns the reference 7-list, NHWC:
     [mu_p, logvar_p, kld_loss, depth_out, seg_out, depth_seg_out, rgb_out].
   The all-zero seg outputs are broadcast views (no memory).
+
+  With `rows` (a `spatial.Rows`; the eval, folded form only) every map
+  is split by rows over its process group: each rank passes the whole
+  conditions, runs this forward on its rows, and gets the whole outputs.
   """
 
   def __init__(self, gen_dims: int = 96, z_dim: int = 128,
@@ -265,7 +270,12 @@ class ResNetGenerator(nn.Module):
     self.rgb_conv = OutputHead(h, 3, circular_pad, spectral, fold)
     self.depth_conv = OutputHead(h, 1, circular_pad, spectral, fold)
 
-  def forward(self, cond: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+  def forward(self, cond: Dict[str, torch.Tensor],
+              rows: Optional[spatial.Rows] = None) -> List[torch.Tensor]:
+    if rows is not None and (self.training or not all(
+        getattr(m, 'fold', True) for m in self.modules())):
+      raise ValueError('the row-partitioned generator serves the eval, '
+                       'folded form (spectral_fold=True, .eval())')
     guidance_depth = cond['proj_depth']
     parts = [cond['proj_image'], guidance_depth]
     if self.use_blurred_mask:
@@ -277,6 +287,8 @@ class ResNetGenerator(nn.Module):
       # CPU (oneDNN) backward of a strided 1x1 convolution crashes on
       # channels_last input with more than two threads (PyTorch 2.13).
       combined, mask = combined.contiguous(), mask.contiguous()
+    if rows is not None:
+      combined, mask = rows.split(combined), rows.split(mask)
 
     hidden, skip = self.encoder(combined, mask)
     if self.global_context is not None:
@@ -291,8 +303,12 @@ class ResNetGenerator(nn.Module):
                           device=guidance_depth.device).expand(
                               *guidance_depth.shape[:-1],
                               constants.NUM_MP3D_CLASSES)
-    rgb_out = _nhwc(self.rgb_conv(out)).float()
-    depth_out = _nhwc(self.depth_conv(depth_out)).float()
+    def head(conv, x):
+      x = conv(x)
+      return _nhwc(x if rows is None else rows.gather(x)).float()
+
+    rgb_out = head(self.rgb_conv, out)
+    depth_out = head(self.depth_conv, depth_out)
     rgb_out = (torch.tanh(rgb_out) + 1) / 2
     depth_out = torch.clamp(depth_out, 0.0, 1.0)
     return [zeros_latent, zeros_latent, zeros_latent, depth_out, seg_out,

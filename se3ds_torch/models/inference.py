@@ -677,8 +677,7 @@ class SE3DSModel:
         'proj_mask': proj_mask,
         'blurred_mask': torch.zeros_like(proj_mask),
     }
-    outputs = (self.model(inputs) if self._rows is None
-               else spatial.generate(self._rows, self.model, inputs))
+    outputs = self.model(inputs, rows=self._rows)
     (mu, logvar, _, pred_depth, pred_semantic, _, generated_rgb
      ) = outputs
     pred_depth = torch.clamp(pred_depth[..., 0], 0.0, 1.0)

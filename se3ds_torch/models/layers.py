@@ -47,6 +47,16 @@ it reads in `generator.fused_convs`; elsewhere it is the layers' own ops
 computed in float32 (`epilogue_plain`), the same ops as each layer's
 when the tensors are float32.
 
+How a convolution pads its input is decided in one place, `conv_pads`
+(its fused pad, TF's 'SAME' pads, the circular width at eval), for the
+whole image and for a rank's rows alike. Every layer takes a rank's rows
+of a map split over a process group (a `spatial.Band`: the generator of
+`SE3DSModel(mesh=...)` with a 'spatial' axis above 1) where it takes a
+tensor: a layer that reads across rows runs its whole-image op on the
+window of input rows that its output rows read, which `spatial` fetches
+with the height pads as fill rows, and pads the width itself. `spatial`
+decides only which rows each rank holds and reads.
+
 Rematerialisation (`remat`, inside `rematerialise()`): the models run
 their blocks as segments of `torch.utils.checkpoint`, which keeps each
 segment's inputs and recomputes the rest in the backward pass. The
@@ -70,6 +80,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from se3ds_torch import tracing
+from se3ds_torch.models import spatial
 from se3ds_torch.ops import epilogue_cuda
 
 BN_EPSILON = 1e-3
@@ -189,20 +200,45 @@ def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
   return total // 2, total - total // 2
 
 
-def _pad_for(x: torch.Tensor, kh: int, kw: int, strides: Tuple[int, int],
-             padding: str, fused_pad: int, circular: bool) -> torch.Tensor:
-  """Pads x for a VALID window op, as the Flax layer pads it at eval."""
+class Pads(NamedTuple):
+  """How a window op pads its input: zero rows above and below, and zero
+  columns left and right or, with `wrap`, the width extended circularly
+  (`wrap_width`, left == right)."""
+  top: int
+  bottom: int
+  left: int
+  right: int
+  wrap: bool = False
+
+
+def conv_pads(size: Tuple[int, int], kernel: Tuple[int, int],
+              strides: Tuple[int, int], padding: str = 'SAME',
+              fused_pad: int = 0, wraps: bool = False) -> Pads:
+  """The one rule of how a convolution (or a mask's window sum) pads an
+  input of `size` (rows, columns), as the Flax layer pads it: its
+  `fused_pad` on every side, the width wrapped where `wraps` (a circular
+  layer at eval), else TF's 'SAME' pads (the odd row and column after)
+  or none ('VALID'). The whole-image and the row-band routes both pad by
+  it."""
   if fused_pad:
-    return pad2d(x, fused_pad, circular_pad=circular)
+    return Pads(fused_pad, fused_pad, fused_pad, fused_pad, wraps)
   padding = padding.upper()
   if padding == 'VALID':
-    return x
+    return Pads(0, 0, 0, 0)
   if padding != 'SAME':
     raise ValueError(f'Unsupported padding {padding!r}')
-  top, bottom = _same_pads(x.shape[-2], kh, strides[0])
-  left, right = _same_pads(x.shape[-1], kw, strides[1])
+  return Pads(*_same_pads(size[0], kernel[0], strides[0]),
+              *_same_pads(size[1], kernel[1], strides[1]))
+
+
+def _padded(x: torch.Tensor, pads: Pads) -> torch.Tensor:
+  """x padded by `pads` (a copy where any pad is not zero)."""
+  top, bottom, left, right, wrap = pads
+  if wrap:
+    return wrap_width(F.pad(x, (0, 0, top, bottom)) if top or bottom else x,
+                      left)
   if top or bottom or left or right:
-    x = F.pad(x, (left, right, top, bottom))
+    return F.pad(x, (left, right, top, bottom))
   return x
 
 
@@ -217,7 +253,8 @@ def mask_window_sum(mask: torch.Tensor, kh: int, kw: int, strides: IntPair,
   sh, sw = _to_pair(strides)
   if kh == 1 and kw == 1 and fused_pad == 0:
     return mask if (sh == 1 and sw == 1) else mask[:, :, ::sh, ::sw]
-  padded = _pad_for(mask, kh, kw, (sh, sw), padding, fused_pad, circular)
+  padded = _padded(mask, conv_pads(mask.shape[-2:], (kh, kw), (sh, sw),
+                                   padding, fused_pad, circular))
   return F.avg_pool2d(padded, (kh, kw), stride=(sh, sw), divisor_override=1)
 
 
@@ -246,17 +283,18 @@ def _conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
   return F.conv2d(x, weight, **kwargs)
 
 
-def circular_conv2d(x: torch.Tensor, weight: torch.Tensor, strides: IntPair,
-                    pad: int, circular: bool) -> torch.Tensor:
-  """`pad2d(x, pad, circular)` followed by a VALID convolution (OIHW).
-
-  A zero pad is the convolution's own, as the JAX package pads in
-  training: no padded copy of `x` is made (and kept for the backward).
-  """
-  if not circular:
-    return _conv2d(x, weight, stride=_to_pair(strides), padding=pad)
-  return _conv2d(pad2d(x, pad, circular_pad=True), weight,
-                 stride=_to_pair(strides))
+def _conv_padded(x: torch.Tensor, weight: torch.Tensor,
+                 strides: Tuple[int, int], pads: Pads) -> torch.Tensor:
+  """A VALID convolution of x padded by `pads`. A zero pad is the
+  convolution's own, as the JAX package pads in training: no padded copy
+  of `x` is made (and kept for the backward) but for TF SAME's odd row
+  and column, after, which cuDNN's symmetric pad cannot add."""
+  if pads.wrap:
+    return _conv2d(_padded(x, pads), weight, stride=strides)
+  top, bottom, left, right, _ = pads
+  if bottom > top or right > left:
+    x = F.pad(x, (0, right - left, 0, bottom - top))
+  return _conv2d(x, weight, stride=strides, padding=(top, left))
 
 
 def spectral_normalize(w_flat: torch.Tensor, u: torch.Tensor,
@@ -343,8 +381,15 @@ def epilogue(x: ConvOutput, act: Activation = None,
   convolution output once and counts them in `generator.fused_convs`; a
   fault there raises. Everywhere else (training, which needs autograd and
   batch statistics; the CPU) it is `epilogue_plain`, whose bits the
-  kernel gives on the card.
+  kernel gives on the card. Given a rank's rows (`spatial.Band`s as
+  x.out, the residual or its out), it runs on their tensors and returns
+  bands.
   """
+  if isinstance(x.out, spatial.Band):  # a rank's rows: on their tensors
+    out, update_mask = epilogue(_rows_of(x), act, _rows_of(residual),
+                                after_act, post_bn)
+    return x.out.like(out), (None if update_mask is None
+                             else x.out.like(update_mask))
   stages = [x] + ([residual] if isinstance(residual, ConvOutput) else [])
   modules = [m for s in stages for m in (s.conv, s.bn) if m is not None]
   modules += [post_bn] if post_bn is not None else []
@@ -365,6 +410,16 @@ def epilogue(x: ConvOutput, act: Activation = None,
   tracing.counter('generator.fused_convs',
                   sum(s.conv is not None for s in stages))
   return out
+
+
+def _rows_of(value):
+  """A `Band`'s tensor, a `ConvOutput` of bands' with its tensors, or
+  `value` itself."""
+  if isinstance(value, spatial.Band):
+    return value.x
+  if isinstance(value, ConvOutput):
+    return ConvOutput(*map(_rows_of, value))
+  return value
 
 
 def epilogue_plain(x: ConvOutput, act: Activation = None,
@@ -468,23 +523,27 @@ class _Conv(nn.Module):
     """Circular width padding: at eval only."""
     return self.circular and not self.training
 
-  def _conv(self, x: torch.Tensor,
-            weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+  def pads(self, size: Tuple[int, int]) -> Pads:
+    """How this convolution pads an input of `size` (rows, columns)."""
+    return conv_pads(size, self.weight.shape[-2:], self.strides, self.padding,
+                     self.fused_pad, self.wraps)
+
+  def _window(self, band: spatial.Band) -> spatial.Window:
+    """The input rows that this rank's output rows read, padded as the
+    whole map is: fill rows beyond its edges, the width padded here."""
+    pads = self.pads(band.shape[-2:])
+    window = band.strided(self.weight.shape[-2], self.strides[0], pads.top,
+                          pads.bottom)
+    return window._replace(x=_padded(window.x,
+                                     pads._replace(top=0, bottom=0)))
+
+  def _conv(self, x: Union[torch.Tensor, spatial.Band],
+            weight: Optional[torch.Tensor] = None):
     weight = (self.weight if weight is None else weight).to(x.dtype)
-    if self.fused_pad:
-      return circular_conv2d(x, weight, self.strides, self.fused_pad,
-                             self.wraps)
-    kh, kw = weight.shape[-2:]
-    if self.padding.upper() != 'SAME':
-      x = _pad_for(x, kh, kw, self.strides, self.padding, 0, False)
-      return _conv2d(x, weight, stride=self.strides)
-    # The symmetric part of TF's SAME pad is the convolution's own; the
-    # odd row and column, after, is padded here.
-    top, bottom = _same_pads(x.shape[-2], kh, self.strides[0])
-    left, right = _same_pads(x.shape[-1], kw, self.strides[1])
-    if bottom > top or right > left:
-      x = F.pad(x, (0, right - left, 0, bottom - top))
-    return _conv2d(x, weight, stride=self.strides, padding=(top, left))
+    if isinstance(x, spatial.Band):
+      window = self._window(x)
+      return window.keep(_conv2d(window.x, weight, stride=self.strides))
+    return _conv_padded(x, weight, self.strides, self.pads(x.shape[-2:]))
 
   def convolve(self, x: torch.Tensor) -> torch.Tensor:
     """The convolution, without the bias (which its epilogue adds)."""
@@ -546,6 +605,8 @@ class PartialConv(_Conv):
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(the convolution of the masked features, without the bias; the
     mask's window sums), which `renormalise` or an epilogue take."""
+    if isinstance(feature, spatial.Band):
+      return self._convolve_rows(feature, mask)
     kh, kw = self.weight.shape[-2:]
     if mask is None:
       mask = torch.ones_like(feature[:, :1])
@@ -556,6 +617,21 @@ class PartialConv(_Conv):
                                  fused_pad=self.fused_pad,
                                  circular=self.wraps, padding=self.padding)
     return self._conv(feature * mask), window_sum
+
+  def _convolve_rows(self, feature: spatial.Band,
+                     mask: Optional[spatial.Band]
+                     ) -> Tuple[spatial.Band, spatial.Band]:
+    """`convolve` (eval) on a rank's rows: the masked features and the
+    mask in one window."""
+    x = feature.x
+    mask = torch.ones_like(x[:, :1]) if mask is None else mask.x
+    window = self._window(feature.like(torch.cat([x * mask, mask], dim=1)))
+    kh, kw = self.weight.shape[-2:]
+    window_sum = mask_window_sum(window.x[:, -1:], kh, kw, self.strides,
+                                 padding='VALID')
+    out = _conv2d(window.x[:, :-1], self.weight.to(x.dtype),
+                  stride=self.strides)
+    return window.keep(out), window.keep(window_sum)
 
   def forward(self, feature: torch.Tensor,
               mask: Optional[torch.Tensor] = None
@@ -605,30 +681,32 @@ class Conv2DTranspose(nn.Module):
     self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
   def _pads(self, k: int, s: int) -> Tuple[int, int]:
-    """(before, after) pads of the dilated input (lax.conv_transpose)."""
+    """(before, after) pads of `conv_transpose2d`'s full output, which
+    pads the dilated input by k - 1 on both sides, to lax.conv_transpose's
+    pads of it (negative: crops)."""
     if self.padding == 'SAME':
       pad_len = k + s - 2
       pad_a = k - 1 if s > k - 1 else -(-pad_len // 2)
     else:
       pad_len = k + s - 2 + max(k - s, 0)
       pad_a = k - 1
-    return pad_a, pad_len - pad_a
+    return pad_a - (k - 1), pad_len - pad_a - (k - 1)
 
-  def convolve(self, x: torch.Tensor) -> torch.Tensor:
+  def convolve(self, x: Union[torch.Tensor, spatial.Band]):
     """The transposed convolution, without the bias."""
     weight = self.weight.to(x.dtype)
-    kh, kw = weight.shape[-2:]
-    # conv_transpose2d with padding 0 pads the dilated input by k-1 on
-    # both sides; crop (or zero-extend) to the Flax pads.
+    (sh, sw), (kh, kw) = self.strides, weight.shape[-2:]
+    top, bottom = self._pads(kh, sh)
+    window = None
+    if isinstance(x, spatial.Band):  # its rows: the window crops them
+      window = x.transposed(kh, sh, top, bottom)
+      x, top, bottom = window.x, 0, 0
     _count_conv(x, weight)
     out = F.conv_transpose2d(x, weight, stride=self.strides)
-    crops = []
-    for k, s in ((kw, self.strides[1]), (kh, self.strides[0])):
-      before, after = self._pads(k, s)
-      crops += [before - (k - 1), after - (k - 1)]
+    crops = [*self._pads(kw, sw), top, bottom]
     if any(crops):
       out = F.pad(out, crops)
-    return out
+    return out if window is None else window.keep(out)
 
   def forward(self, x: torch.Tensor) -> torch.Tensor:
     return epilogue(ConvOutput(self.convolve(x), self))[0]
@@ -714,16 +792,22 @@ class InstanceNorm(nn.Module):
                            eps=self.epsilon)
 
 
-def max_pool_2x2_same(x: torch.Tensor) -> torch.Tensor:
+def max_pool_2x2_same(x: Union[torch.Tensor, spatial.Band]):
   """MaxPool2D(pool=2, strides=2, padding=SAME)."""
   h, w = x.shape[-2:]
+  if isinstance(x, spatial.Band):  # its rows: -inf below an odd map
+    window = x.strided(2, 2, 0, h % 2, fill=float('-inf'))
+    return window.keep(max_pool_2x2_same(window.x))
   if h % 2 or w % 2:
     x = F.pad(x, (0, w % 2, 0, h % 2), value=float('-inf'))
   return F.max_pool2d(x, 2, 2)
 
 
-def upsample_2x_nearest(x: torch.Tensor) -> torch.Tensor:
+def upsample_2x_nearest(x: Union[torch.Tensor, spatial.Band]):
   """Keras UpSampling2D() (nearest, x2), in the input's memory layout."""
+  if isinstance(x, spatial.Band):  # its rows: row o is input row o // 2
+    window = x.transposed(2, 2, 0, 0)
+    return window.keep(upsample_2x_nearest(window.x))
   return F.interpolate(x, scale_factor=2, mode='nearest')
 
 
@@ -734,10 +818,8 @@ def avg_pool_3x3_stride2_same(x: torch.Tensor) -> torch.Tensor:
   the divisor counts only the in-bounds elements of each window, so a
   symmetric `count_include_pad=False` pool is not it.
   """
-  top, bottom = _same_pads(x.shape[-2], 3, 2)
-  left, right = _same_pads(x.shape[-1], 3, 2)
-  pads = (left, right, top, bottom)
-  window_sum = lambda t: F.avg_pool2d(F.pad(t, pads), 3, 2,
+  pads = conv_pads(x.shape[-2:], (3, 3), (2, 2))
+  window_sum = lambda t: F.avg_pool2d(_padded(t, pads), 3, 2,
                                       divisor_override=1)
   return window_sum(x) / window_sum(torch.ones_like(x[:1, :1]))
 

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from se3ds_torch import config as config_t
+from se3ds_torch import tracing as tracing_t
 from se3ds_torch.data import example_pb as example_pb_t
 from se3ds_torch.data import synthetic as synthetic_t
 from se3ds_torch.data import tfrecord as tfrecord_t
@@ -113,10 +114,18 @@ def _serve(mesh, mode, feedback):
                                memory_mode='ring' if feedback else 'strict')
   model = inference_t.SE3DSModel(config, device='cpu', mesh=mesh)
   model.add_to_memory(*_pano(11), np.zeros((1, 3), np.float32))
-  outs = {'call': model(TARGET), 'mode': model.config.splat_mode}
+  outs = {'mode': model.config.splat_mode, 'convs': {}}
+
+  def run(key, call, *args):
+    """outs[key] = call(*args), and the convolutions it ran."""
+    before = tracing_t.count('generator.convs')
+    outs[key] = call(*args)
+    outs['convs'][key] = tracing_t.count('generator.convs') - before
+
+  run('call', model, TARGET)
   if feedback:
-    outs['trajectory'] = model.predict_trajectory(TRAJECTORY)
-    outs['poses'] = model.predict_poses(POSES)
+    run('trajectory', model.predict_trajectory, TRAJECTORY)
+    run('poses', model.predict_poses, POSES)
   return outs
 
 
@@ -226,6 +235,9 @@ def test_mesh_model_matches_the_meshless_model(ranks, index):
     for key in ('call',) + (('trajectory', 'poses') if feedback else ()):
       _assert_within_bounds(got[key], want[key], shape[1] > 1,
                             f'{what} {key}')
+    # Every rank runs the generator's own layers, whole or on its rows.
+    assert got['convs'] == want['convs'], what
+  assert min(want['convs'].values()) > 0
 
 
 def test_mesh_renames_the_kernel_modes(ranks):
