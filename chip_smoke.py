@@ -32,14 +32,18 @@ Phases, in order; any failure raises and the process exits non-zero:
      main path's own memory and times it (point passes, resolves, whole
      stage, plain). The epilogue kernel's launches on this run, every
      convolution output read by it (`generator.fused_convs` equal to
-     `generator.convs`).
-  4b. The conv epilogue kernel (csrc/epilogue.cu) on the served
-     generator's own calls, phase 4's config run eagerly: one served step
-     (batch 1) and one predict_poses call (batch 8), every call of
-     `layers.epilogue` (each a kernel launch) held torch.equal to
-     `layers.epilogue_plain` on the same inputs; then the kernel's device
-     time per call, the whole call's with the plain body in its place,
-     and the kernel's bytes over the card's memory rate.
+     `generator.convs`); the wrap kernel's launches, one for every
+     circular pad (`wrap.launches` equal to `generator.wrap_pads`).
+  4b. The conv epilogue kernel (csrc/epilogue.cu) and the circular wrap
+     kernel (csrc/wrap.cu) on the served generator's own calls, phase 4's
+     config run eagerly: one served step (batch 1) and one predict_poses
+     call (batch 8), every call of `layers.epilogue` (each a kernel
+     launch) held torch.equal to `layers.epilogue_plain` on the same
+     inputs, and every circular call of `layers._padded` (each a kernel
+     launch) torch.equal to its plain body (which runs where autograd
+     records); then each kernel's device time per call, the whole call's
+     with the kernel's plain body in its place, and the kernel's bytes
+     over the card's memory rate.
   5. The exact splat against its plain version: both forms, torch.equal
      on depth and features, on edge cases (with output void 0 and -1,
      negative features, points beyond depth_scale) and on collision-heavy
@@ -219,6 +223,9 @@ def set_launches(fast=0, exact=0):
 EPILOGUE_COUNTERS = ('epilogue.launches', 'generator.fused_convs',
                      'generator.convs')
 EPILOGUE_KERNEL = 'epilogue_kernel'  # csrc/epilogue.cu, by profiler name
+# The wrap kernel's launches and the circular pads it makes, of all.
+WRAP_COUNTERS = ('wrap.launches', 'generator.wrap_pads')
+WRAP_KERNEL = 'wrap_kernel'  # csrc/wrap.cu, by profiler name
 
 
 def zero_counters(names):
@@ -619,7 +626,7 @@ def phase_serving(inference, model_config, splat_cuda, power):
   phase_ms = {}
 
   set_launches()
-  zero_counters(EPILOGUE_COUNTERS)
+  zero_counters(EPILOGUE_COUNTERS + WRAP_COUNTERS)
   t0 = time.perf_counter()
   model.add_to_memory(rgb, sem, depth, np.zeros((1, 3), np.float32),
                       mask_blurred=True)
@@ -649,6 +656,11 @@ def phase_serving(inference, model_config, splat_cuda, power):
     raise AssertionError(f'{epilogue_launches} epilogue launches for '
                          f'{frames} frames, {fused} of {convs} convolution '
                          'outputs read by them (expected all)')
+  wrap_launches, wrap_pads = (tracing.count(n) for n in WRAP_COUNTERS)
+  if not (wrap_launches == wrap_pads > 0 and wrap_pads % frames == 0):
+    raise AssertionError(f'{wrap_launches} wrap launches for {wrap_pads} '
+                         f'circular pads in {frames} frames (expected one '
+                         'each)')
 
   for out in outs + [traj]:
     lead = (3,) if out is traj else ()
@@ -683,6 +695,8 @@ def phase_serving(inference, model_config, splat_cuda, power):
   log(f'  epilogue kernel launches on the main path: {epilogue_launches} '
       f'({epilogue_launches // frames} a frame), reading {fused} of the '
       f'{convs} convolution outputs')
+  log(f'  wrap kernel launches on the main path: {wrap_launches} '
+      f'({wrap_launches // frames} a frame), for {wrap_pads} circular pads')
 
   # The stage against its plain version on the main path's own inputs:
   # the memory as the next frame would splat it.
@@ -705,7 +719,7 @@ def phase_serving(inference, model_config, splat_cuda, power):
                 '== plain)', t, power)
     frame = {k: frame.get(k, 0.0) + v for k, v in t.items()}
   log_timings('main-path splat per served frame', frame, power)
-  return launches, max_err, frame, epilogue_launches
+  return launches, max_err, frame, epilogue_launches, wrap_launches
 
 
 def epilogue_bytes(layers, x, residual, out):
@@ -722,10 +736,18 @@ def epilogue_bytes(layers, x, residual, out):
       out[0].element_size())
 
 
-def phase_epilogue(inference, model_config, power):
-  log('== phase 4b: the conv epilogue kernel on the served generator\'s '
-      'own calls against its plain body (1024x512, gen_dims 128, '
-      'ResNet-101, bf16, batch 1 and 8) ==')
+def wrap_bytes(x, scale, out):
+  """The bytes the wrap kernel reads and writes in the call
+  `layers._padded(x, pads, scale)` that returned `out`: its input and its
+  scale once, and its padded block once."""
+  return sum(t.numel() for t in (x, scale, out) if t is not None) * (
+      out.element_size())
+
+
+def phase_generator_kernels(inference, model_config, power):
+  log('== phase 4b: the conv epilogue and wrap kernels on the served '
+      'generator\'s own calls against their plain bodies (1024x512, '
+      'gen_dims 128, ResNet-101, bf16, batch 1 and 8) ==')
   from se3ds_torch.models import layers
   model = inference.SE3DSModel(
       serving_config(model_config), device='cuda',
@@ -740,72 +762,114 @@ def phase_epilogue(inference, model_config, power):
   position = np.array([[0.25, 0.1, 0.0]], np.float32)
   calls = {1: lambda: model(position),
            POSES_K: lambda: model.predict_poses(poses)}
-  real = layers.epilogue
-  seen = {}
+  real, real_padded = layers.epilogue, layers._padded
+  seen = {'epilogue': {}, 'wrap': {}}
+
+  def note(kernel, out, want, nbytes, shape):
+    """Holds one kernel call's outputs to its plain body's."""
+    s = seen[kernel]
+    s['max_err'] = max(s['max_err'], equal_or_raise(
+        f'{kernel} call {s["calls"]} on {shape} {out[0].dtype}', out, want))
+    s['calls'] += 1
+    s['bytes'] += nbytes
+    s['shapes'].add(shape[1:])
 
   def checked(x, act=None, residual=None, after_act=False, post_bn=None):
     before = tracing.count('epilogue.launches')
     out = real(x, act, residual, after_act, post_bn)
     if tracing.count('epilogue.launches') != before + 1:
-      raise AssertionError(f'epilogue call {seen["calls"]} on '
+      raise AssertionError(f'epilogue call {seen["epilogue"]["calls"]} on '
                            f'{tuple(x.out.shape)} launched no kernel')
-    want = layers.epilogue_plain(x, act, residual, after_act, post_bn)
-    seen['max_err'] = max(seen['max_err'], equal_or_raise(
-        f'epilogue call {seen["calls"]} on {tuple(x.out.shape)} '
-        f'{x.out.dtype}', out, want))
-    seen['calls'] += 1
-    seen['bytes'] += epilogue_bytes(layers, x, residual, out)
-    seen['shapes'].add(tuple(x.out.shape[1:]))
+    note('epilogue', out,
+         layers.epilogue_plain(x, act, residual, after_act, post_bn),
+         epilogue_bytes(layers, x, residual, out), tuple(x.out.shape))
     return out
 
   def plain(x, act=None, residual=None, after_act=False, post_bn=None):
     return layers.epilogue_plain(x, act, residual, after_act, post_bn)
 
-  results = {}
+  def plain_padded(x, pads, scale=None):
+    """`layers._padded`'s plain body: it runs where autograd records."""
+    with torch.enable_grad():
+      return real_padded(x.detach().requires_grad_(), pads, scale).detach()
+
+  def checked_padded(x, pads, scale=None):
+    if not pads.wrap:
+      return real_padded(x, pads, scale)
+    before = tracing.count('wrap.launches')
+    out = real_padded(x, pads, scale)
+    if tracing.count('wrap.launches') != before + 1:
+      raise AssertionError(f'wrap call {seen["wrap"]["calls"]} on '
+                           f'{tuple(x.shape)} launched no kernel')
+    note('wrap', [out], [plain_padded(x, pads, scale)],
+         wrap_bytes(x, scale, out), tuple(x.shape))
+    return out
+
+  def patched(**fns):
+    """Runs fn with these functions of `layers` in place of its own."""
+    def run(fn):
+      for name, f in fns.items():
+        setattr(layers, name, f)
+      try:
+        return fn()
+      finally:
+        layers.epilogue, layers._padded = real, real_padded
+    return run
+
+  # Each kernel: the `layers` function that launches it, its plain body,
+  # and its name in the profiler.
+  kernels = {'epilogue': ('epilogue', plain, EPILOGUE_KERNEL),
+             'wrap': ('_padded', plain_padded, WRAP_KERNEL)}
+  results = {name: {} for name in kernels}
   for batch, fn in calls.items():
     fn()  # warm-up: cuDNN picks its algorithms
     sync()
-    seen.update(calls=0, bytes=0, max_err=0.0, shapes=set())
-    zero_counters(EPILOGUE_COUNTERS)
-    layers.epilogue = checked
-    try:
-      fn()
-      sync()
-    finally:
-      layers.epilogue = real
+    for s in seen.values():
+      s.update(calls=0, bytes=0, max_err=0.0, shapes=set())
+    zero_counters(EPILOGUE_COUNTERS + WRAP_COUNTERS)
+    patched(epilogue=checked, _padded=checked_padded)(fn)
+    sync()
     launches, fused, convs = (tracing.count(n) for n in EPILOGUE_COUNTERS)
-    if not (launches == seen['calls'] > 0 and fused == convs):
-      raise AssertionError(f'batch {batch}: {launches} launches in '
-                           f'{seen["calls"]} checked calls, {fused} of '
-                           f'{convs} convolution outputs fused')
-    call_ms, kernel_ms = profiled_ms(fn, EPILOGUE_KERNEL)
-    layers.epilogue = plain
-    try:
-      plain_call_ms, left_ms = profiled_ms(fn, EPILOGUE_KERNEL)
-    finally:
-      layers.epilogue = real
-    if left_ms:
-      raise AssertionError('the epilogue kernel ran with the plain body in '
-                           'its place')
-    # The call's device time less its kernel's is the rest of the call,
-    # which the plain body's call holds too.
-    plain_ms = plain_call_ms - (call_ms - kernel_ms)
-    bound_ms = seen['bytes'] / HBM_BYTES_PER_S * 1e3
-    channels = sorted(c for c, _, _ in seen['shapes'])
-    maps = sorted({(h, w) for _, h, w in seen['shapes']})
-    log(f'  batch {batch}: {launches} launches, every output torch.equal '
-        f'to the plain body (max |d| {seen["max_err"]}); {fused} of {convs} '
-        f'convolution outputs read; C {channels[0]} to {channels[-1]}, maps '
-        f'{maps[-1]} down to {maps[0]}')
-    log(f'  batch {batch}: kernel {kernel_ms:.4f} ms a call '
-        f'({seen["bytes"] / 1e9:.3f} GB, '
-        f'{seen["bytes"] / kernel_ms / 1e9:.3f} TB/s), bound '
-        f'{bound_ms:.4f} ms, plain body {plain_ms:.4f} ms; the whole call '
-        f'{call_ms:.4f} ms, {plain_call_ms:.4f} ms with the plain body '
-        f'({power})')
-    results[batch] = {'launches': launches, 'max_err': seen['max_err'],
-                      'ms': kernel_ms, 'plain_ms': plain_ms,
-                      'bound_ms': bound_ms}
+    if not (launches == seen['epilogue']['calls'] > 0 and fused == convs):
+      raise AssertionError(f'batch {batch}: {launches} epilogue launches in '
+                           f'{seen["epilogue"]["calls"]} checked calls, '
+                           f'{fused} of {convs} convolution outputs fused')
+    # Each checked call's plain body counts its circular pad too.
+    wraps, pads = (tracing.count(n) for n in WRAP_COUNTERS)
+    pads -= seen['wrap']['calls']
+    if not wraps == pads == seen['wrap']['calls'] > 0:
+      raise AssertionError(f'batch {batch}: {wraps} wrap launches in '
+                           f'{seen["wrap"]["calls"]} checked calls, for '
+                           f'{pads} circular pads')
+    log(f'  batch {batch}: {launches} epilogue launches reading {fused} of '
+        f'{convs} convolution outputs, {wraps} wrap launches for {pads} '
+        'circular pads')
+    for name, (attr, plain_fn, kernel) in kernels.items():
+      s = seen[name]
+      call_ms, kernel_ms = profiled_ms(fn, kernel)
+      plain_call_ms, left_ms = profiled_ms(
+          lambda: patched(**{attr: plain_fn})(fn), kernel)
+      if left_ms:
+        raise AssertionError(f'the {name} kernel ran with the plain body in '
+                             'its place')
+      # The call's device time less its kernel's is the rest of the call,
+      # which the plain body's call holds too.
+      plain_ms = plain_call_ms - (call_ms - kernel_ms)
+      bound_ms = s['bytes'] / HBM_BYTES_PER_S * 1e3
+      channels = sorted(c for c, _, _ in s['shapes'])
+      maps = sorted({(h, w) for _, h, w in s['shapes']})
+      log(f'  batch {batch}, {name}: {s["calls"]} launches, every output '
+          f'torch.equal to the plain body (max |d| {s["max_err"]}); C '
+          f'{channels[0]} to {channels[-1]}, maps {maps[-1]} down to '
+          f'{maps[0]}')
+      log(f'  batch {batch}, {name}: kernel {kernel_ms:.4f} ms a call '
+          f'({s["bytes"] / 1e9:.3f} GB, {s["bytes"] / kernel_ms / 1e9:.3f} '
+          f'TB/s), bound {bound_ms:.4f} ms, plain body {plain_ms:.4f} ms; '
+          f'the whole call {call_ms:.4f} ms, {plain_call_ms:.4f} ms with the '
+          f'plain body ({power})')
+      results[name][batch] = {'launches': s['calls'],
+                              'max_err': s['max_err'], 'ms': kernel_ms,
+                              'plain_ms': plain_ms, 'bound_ms': bound_ms}
   return results
 
 
@@ -3070,9 +3134,11 @@ def main():
 
   max_err = run('2', phase_kernel_parity, splat_cuda, geometry, power)
   run('3', phase_small_vs_cpu, inference, model_config)
-  launches, main_err, fast, epilogue_launches = run(
+  launches, main_err, fast, epilogue_launches, wrap_launches = run(
       '4', phase_serving, inference, model_config, splat_cuda, power)
-  epilogue = run('4b', phase_epilogue, inference, model_config, power)
+  generator_kernels = run('4b', phase_generator_kernels, inference,
+                          model_config, power)
+  epilogue, wrap = generator_kernels['epilogue'], generator_kernels['wrap']
   exact_err = run('5', phase_exact_parity, splat_cuda, geometry, power)
   exact_launches, rollout_err, exact = run(
       '6', phase_eval, inference, model_config, splat_cuda, power)
@@ -3138,6 +3204,13 @@ def main():
           for b, e in epilogue.items()))
   log(f'conv epilogue launches: {epilogue_launches} in phase 4 (the kernels '
       'line counts the main path\'s)')
+  log('circular wrap per served generator call (1024x512, bf16, phase '
+      '4b, device ms): ' + ', '.join(
+          f'batch {b}: kernel {e["ms"]:.4f}, plain {e["plain_ms"]:.4f}, '
+          f'bound {e["bound_ms"]:.4f}, {e["launches"]} launches'
+          for b, e in wrap.items()))
+  log(f'circular wrap launches: {wrap_launches} in phase 4 (the kernels '
+      'line counts the main path\'s)')
   log(f'chip_smoke took {time.perf_counter() - START:.1f} s; by phase: '
       + ', '.join(f'{k} {v:.1f} s' for k, v in seconds.items()))
   log(power)
@@ -3165,6 +3238,13 @@ def main():
           'max_abs_err': max(e['max_err'] for e in epilogue.values()),
           'ms': epilogue[1]['ms'], 'plain_ms': epilogue[1]['plain_ms'],
           'bound_ms': epilogue[1]['bound_ms'], 'bound_by': 'bytes',
+          'library_ms': None}, {
+          'name': 'circular_wrap', 'route': 'cuda',
+          'source': 'se3ds_torch/csrc/wrap.cu', 'replaces': None,
+          'launches': wrap_launches,
+          'max_abs_err': max(e['max_err'] for e in wrap.values()),
+          'ms': wrap[1]['ms'], 'plain_ms': wrap[1]['plain_ms'],
+          'bound_ms': wrap[1]['bound_ms'], 'bound_by': 'bytes',
           'library_ms': None}]}))
   log(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

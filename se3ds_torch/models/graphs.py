@@ -33,9 +33,10 @@ second) and `replay`, then `copy_out` (the outputs' clones); and the
 counters `serve.eager_runs`, `serve.captures` and `serve.replays`.
 
 The kernels' launch counters (`splat.fast_launches`,
-`splat.exact_launches`, `epilogue.launches`) and the generator's
-convolution counters (`generator.convs`, `generator.nchw_convs`,
-`generator.fused_convs`) move only when Python runs,
+`splat.exact_launches`, `epilogue.launches`, `wrap.launches`) and the
+generator's convolution and pad counters (`generator.convs`,
+`generator.nchw_convs`, `generator.fused_convs`, `generator.wrap_pads`)
+move only when Python runs,
 so they move while a graph is captured and not when it replays. `run`
 takes a graph's count at capture back out and adds it at each replay:
 the counters count the point passes and convolutions that ran.
@@ -50,8 +51,9 @@ import torch
 from se3ds_torch import tracing
 
 LAUNCH_COUNTERS = ('splat.fast_launches', 'splat.exact_launches',
-                   'epilogue.launches', 'generator.convs',
-                   'generator.nchw_convs', 'generator.fused_convs')
+                   'epilogue.launches', 'wrap.launches', 'generator.convs',
+                   'generator.nchw_convs', 'generator.fused_convs',
+                   'generator.wrap_pads')
 
 
 def _launch_counts() -> Tuple[int, ...]:

@@ -49,13 +49,20 @@ when the tensors are float32.
 
 How a convolution pads its input is decided in one place, `conv_pads`
 (its fused pad, TF's 'SAME' pads, the circular width at eval), for the
-whole image and for a rank's rows alike. Every layer takes a rank's rows
-of a map split over a process group (a `spatial.Band`: the generator of
-`SE3DSModel(mesh=...)` with a 'spatial' axis above 1) where it takes a
-tensor: a layer that reads across rows runs its whole-image op on the
-window of input rows that its output rows read, which `spatial` fetches
-with the height pads as fill rows, and pads the width itself. `spatial`
-decides only which rows each rank holds and reads.
+whole image and for a rank's rows alike, and every circular pad is made
+in one, `_padded`, counted in `generator.wrap_pads`. Served (nothing for
+autograd to record, on the card) that is one launch of a CUDA kernel
+that reads the input once and writes the padded block once, counted in
+`wrap.launches`, and a partial convolution's masking of its input rides
+that pass; elsewhere it is `F.pad` and `wrap_width`.
+
+Every layer takes a rank's rows of a map split over a process group (a
+`spatial.Band`: the generator of `SE3DSModel(mesh=...)` with a 'spatial'
+axis above 1) where it takes a tensor: a layer that reads across rows
+runs its whole-image op on the window of input rows that its output rows
+read, which `spatial` fetches with the height pads as fill rows, and pads
+the width itself. `spatial` decides only which rows each rank holds and
+reads.
 
 Rematerialisation (`remat`, inside `rematerialise()`): the models run
 their blocks as segments of `torch.utils.checkpoint`, which keeps each
@@ -82,6 +89,7 @@ from torch.utils import checkpoint as checkpoint_lib
 from se3ds_torch import tracing
 from se3ds_torch.models import spatial
 from se3ds_torch.ops import epilogue_cuda
+from se3ds_torch.ops import wrap_cuda
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99  # Flax/Keras: r = 0.99 * r + 0.01 * batch statistic.
@@ -231,9 +239,25 @@ def conv_pads(size: Tuple[int, int], kernel: Tuple[int, int],
               *_same_pads(size[1], kernel[1], strides[1]))
 
 
-def _padded(x: torch.Tensor, pads: Pads) -> torch.Tensor:
-  """x padded by `pads` (a copy where any pad is not zero)."""
+def _padded(x: torch.Tensor, pads: Pads,
+            scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """x, times `scale` (an (N, 1, H, W) tensor: a partial convolution's
+  mask) where given, padded by `pads` (a copy where any pad is not zero
+  or a scale is given).
+
+  A circular pad counts in `generator.wrap_pads`. On a CUDA tensor, with
+  nothing for autograd to record, it is one launch of the wrap kernel
+  (`ops/wrap_cuda.py`), which multiplies and pads in one read and write;
+  a fault there raises. Everywhere else the ops below, whose bits the
+  kernel gives on the card.
+  """
   top, bottom, left, right, wrap = pads
+  if wrap:
+    tracing.counter('generator.wrap_pads')
+    if x.is_cuda and not _records([x] if scale is None else [x, scale], ()):
+      return wrap_cuda.launch(x, top, bottom, left, scale)
+  if scale is not None:
+    x = x * scale
   if wrap:
     return wrap_width(F.pad(x, (0, 0, top, bottom)) if top or bottom else x,
                       left)
@@ -284,16 +308,18 @@ def _conv2d(x: torch.Tensor, weight: torch.Tensor, **kwargs) -> torch.Tensor:
 
 
 def _conv_padded(x: torch.Tensor, weight: torch.Tensor,
-                 strides: Tuple[int, int], pads: Pads) -> torch.Tensor:
-  """A VALID convolution of x padded by `pads`. A zero pad is the
-  convolution's own, as the JAX package pads in training: no padded copy
-  of `x` is made (and kept for the backward) but for TF SAME's odd row
-  and column, after, which cuDNN's symmetric pad cannot add."""
+                 strides: Tuple[int, int], pads: Pads,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """A VALID convolution of x (times `scale`, a partial convolution's
+  mask, where given) padded by `pads`, the product and the pad made by
+  `_padded`. A zero pad is the convolution's own, as the JAX package pads
+  in training: no padded copy of `x` is made (and kept for the backward)
+  but for TF SAME's odd row and column, after, which cuDNN's symmetric
+  pad cannot add."""
   if pads.wrap:
-    return _conv2d(_padded(x, pads), weight, stride=strides)
+    return _conv2d(_padded(x, pads, scale), weight, stride=strides)
   top, bottom, left, right, _ = pads
-  if bottom > top or right > left:
-    x = F.pad(x, (0, right - left, 0, bottom - top))
+  x = _padded(x, Pads(0, bottom - top, 0, right - left), scale)
   return _conv2d(x, weight, stride=strides, padding=(top, left))
 
 
@@ -538,12 +564,18 @@ class _Conv(nn.Module):
                                      pads._replace(top=0, bottom=0)))
 
   def _conv(self, x: Union[torch.Tensor, spatial.Band],
-            weight: Optional[torch.Tensor] = None):
+            weight: Optional[torch.Tensor] = None,
+            scale: Optional[torch.Tensor] = None):
+    """The convolution of x by `weight` (default the module's own),
+    without the bias; a whole-image x times `scale` first, where given (a
+    rank's rows take none: `PartialConv._convolve_rows` masks them)."""
     weight = (self.weight if weight is None else weight).to(x.dtype)
     if isinstance(x, spatial.Band):
+      assert scale is None, 'a rank\'s rows are masked by _convolve_rows'
       window = self._window(x)
       return window.keep(_conv2d(window.x, weight, stride=self.strides))
-    return _conv_padded(x, weight, self.strides, self.pads(x.shape[-2:]))
+    return _conv_padded(x, weight, self.strides, self.pads(x.shape[-2:]),
+                        scale)
 
   def convolve(self, x: torch.Tensor) -> torch.Tensor:
     """The convolution, without the bias (which its epilogue adds)."""
@@ -616,7 +648,9 @@ class PartialConv(_Conv):
     window_sum = mask_window_sum(mask, kh, kw, self.strides,
                                  fused_pad=self.fused_pad,
                                  circular=self.wraps, padding=self.padding)
-    return self._conv(feature * mask), window_sum
+    # The masking `feature * mask`: in the wrap's one pass where the input
+    # is padded circularly.
+    return self._conv(feature, scale=mask), window_sum
 
   def _convolve_rows(self, feature: spatial.Band,
                      mask: Optional[spatial.Band]

@@ -824,7 +824,8 @@ def served_step():
   position = np.array([[0.3, 0.1, 0]], np.float32)
   for _ in range(2):  # the eager warm-up, then the capture
     model(position)
-  names = ('serve.replays', 'generator.convs', 'generator.nchw_convs') + FUSED
+  names = (('serve.replays', 'generator.convs', 'generator.nchw_convs')
+           + FUSED + ('wrap.launches', 'generator.wrap_pads'))
   before = [tracing.count(n) for n in names]
   with torch.profiler.profile(
       activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -923,3 +924,151 @@ def test_epilogue_kernel_only_where_nothing_is_recorded(card):
   with torch.no_grad():
     gen(cond)
   assert tracing.count('epilogue.launches') > before
+
+
+# -- the circular wrap kernel -------------------------------------------------
+
+WRAP = ('wrap.launches', 'generator.wrap_pads')
+_PADDED = layers._padded
+
+
+def _plain_padded(x, pads, scale=None):
+  """`layers._padded`'s plain body on the card: it runs where autograd
+  records."""
+  with torch.enable_grad():
+    return _PADDED(x.detach().requires_grad_(), pads, scale).detach()
+
+
+def _bits(x):
+  return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+def _wrap_inputs(card, batch, channels, h, w, dtype, seed):
+  """An (N, C, H, W) input in channels_last memory holding NaN, inf and
+  -0, and an (N, 1, H, W) scale that is not 0/1 (0, -0 and inf among
+  it)."""
+  g = torch.Generator().manual_seed(seed)
+  x = torch.randn(batch, channels, h, w, generator=g) * 3
+  flat = x.view(-1)
+  picks = torch.randperm(flat.numel(), generator=g)[:3 * max(1, flat.numel()
+                                                               // 40)]
+  for i, value in enumerate((float('nan'), float('inf'), -0.0)):
+    flat[picks[i::3]] = value
+  scale = torch.rand(batch, 1, h, w, generator=g) * 2 - 0.5
+  scale.view(-1)[:3] = torch.tensor([0.0, -0.0, float('inf')])
+  return (x.to(card, dtype).contiguous(memory_format=torch.channels_last),
+          scale.to(card, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scaled', [False, True], ids=['copy', 'scaled'])
+@pytest.mark.parametrize('channels', [1, 3, 5, 64, 4096])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32],
+                         ids=['bfloat16', 'float32'])
+def test_wrap_kernel_equals_the_plain_pad(card, dtype, channels, scaled):
+  """The wrap kernel's block is the plain `_padded`'s bit for bit (NaN,
+  inf and -0 included), with and without a scale: margins 1 and 3 and one
+  wider than the map, height pads (1, 1), (3, 3) and the row band's
+  (0, 0), batch 1 and 8; 16-byte vectors where C allows, one value at a
+  time for C of 1, 3 and 5 and for an input 2 bytes off a 16-byte
+  boundary. One launch per call."""
+  h, w = 5, 6
+  for batch in (1, 8):
+    x, scale = _wrap_inputs(card, batch, channels, h, w, dtype,
+                            channels + batch)
+    scale = scale if scaled else None
+    shifted = torch.empty(x.numel() + 1, dtype=dtype, device=card)[1:]
+    shifted = shifted.as_strided(x.shape, x.stride()).copy_(x)
+    for top, margin in ((1, 1), (3, 3), (0, 1), (0, 3), (1, w + 3)):
+      pads = layers.Pads(top, top, margin, margin, True)
+      want = _plain_padded(x, pads, scale)
+      for source in (x, shifted, x.contiguous()):
+        before = [tracing.count(n) for n in WRAP]
+        with torch.no_grad():
+          got = layers._padded(source, pads, scale)
+        assert [tracing.count(n) - b for n, b in zip(WRAP, before)] == [1, 1]
+        assert got.dtype == dtype and got.shape == want.shape
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(_bits(got), _bits(want)), (batch, top, margin)
+
+
+@pytest.mark.cuda
+def test_wrap_kernel_raises_on_what_it_does_not_take(card):
+  """float64, a scale of another dtype or shape: the kernel raises (there
+  is no plain path on the card)."""
+  pads = layers.Pads(1, 1, 1, 1, True)
+  x = torch.zeros(1, 8, 4, 6, device=card)
+  with torch.no_grad():
+    with pytest.raises(TypeError):
+      layers._padded(x.double(), pads)
+    with pytest.raises(ValueError):
+      layers._padded(x, pads, torch.ones(1, 1, 4, 6, device=card,
+                                         dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+      layers._padded(x, pads, torch.ones(1, 8, 4, 6, device=card))
+
+
+@pytest.mark.cuda
+def test_served_step_wraps_every_pad_in_one_launch(served_step):
+  """In a replayed served step every circular pad is one launch of the
+  wrap kernel."""
+  _, _, moved, kernels = served_step
+  assert moved['wrap.launches'] == moved['generator.wrap_pads'] > 0
+  assert [k for k in kernels if 'wrap_kernel' in k]
+
+
+def _wrap_counts():
+  return [tracing.count(n) for n in WRAP]
+
+
+@pytest.mark.cuda
+def test_served_calls_with_the_wrap_kernel_equal_the_plain_pad(card,
+                                                              monkeypatch):
+  """The released model's widths in bfloat16: a replayed trajectory step
+  (a ring of 2) and a replayed `predict_poses` call of 8 launch the wrap
+  kernel for every circular pad (`wrap.launches` moves by
+  `generator.wrap_pads`), and give the bits of the same model run with
+  `_padded`'s plain body patched in, through every step."""
+  cfg = dataclasses.replace(model_config.get_config(), ckpt_path=None,
+                            compute_dtype='bfloat16', memory_frames=2,
+                            memory_mode='ring')
+  graph = inference.SE3DSModel(cfg)
+  plain = inference.SE3DSModel(cfg, cuda_graphs=False)
+  plain.model.load_state_dict(graph.model.state_dict())
+  h, w = cfg.image_height, 2 * cfg.image_height
+  rs = np.random.RandomState(7)
+  pano = (rs.randint(0, 256, (1, h, w, 3)), rs.randint(0, 42, (1, h, w, 1)),
+          rs.uniform(0.1, 0.8, (1, h, w)).astype(np.float32))
+  angles = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+  poses = np.stack([0.3 * np.cos(angles), 0.3 * np.sin(angles),
+                    np.zeros(8)], -1).astype(np.float32)
+
+  def serve(model, calls):
+    """Frame buckets 1, 2, 2, 2: the fourth step replays; then `calls`
+    calls of the 8 poses (the third replays). Each call's outputs and how
+    far the counters moved."""
+    model.add_to_memory(*pano, np.zeros((1, 3), np.float32))
+    outs = []
+    for i in range(4):
+      before = _wrap_counts()
+      out = model(np.array([[0.1 * i, 0.05, 0.0]], np.float32),
+                  add_preds_to_memory=True)
+      outs.append((out, [a - b for a, b in zip(_wrap_counts(), before)]))
+    for _ in range(calls):
+      before = _wrap_counts()
+      out = model.predict_poses(poses)
+      outs.append((out, [a - b for a, b in zip(_wrap_counts(), before)]))
+    return outs
+
+  served = serve(graph, 3)
+  with monkeypatch.context() as patch:
+    patch.setattr(layers, '_padded', _plain_padded)
+    reference = serve(plain, 1)
+  for (_, moved) in (served[3], served[6]):
+    assert moved[0] == moved[1] > 0
+  assert all(moved[0] == 0 and moved[1] > 0 for _, moved in reference)
+  for (got, _), (want, _) in zip(served[:4] + served[6:],
+                                 reference[:4] + reference[4:]):
+    _outputs_equal(got, want)
+  del graph, plain
+  torch.cuda.empty_cache()

@@ -41,7 +41,7 @@ def test_port_imports_no_jax(path):
 def test_port_files_found():
   names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
   assert {'se3ds_torch/ops/splat_cuda.py', 'se3ds_torch/models/inference.py',
-          'se3ds_torch/ops/epilogue_cuda.py',
+          'se3ds_torch/ops/epilogue_cuda.py', 'se3ds_torch/ops/wrap_cuda.py',
           'se3ds_torch/eval/metrics.py', 'se3ds_torch/eval/inception.py',
           'se3ds_torch/eval/fid.py', 'se3ds_torch/models/discriminator.py',
           'se3ds_torch/train/losses.py', 'se3ds_torch/train/state.py',
@@ -92,7 +92,7 @@ def test_kernel_build_flags():
   for bad in ('fast_math', 'prec-div=false', 'prec-sqrt=false'):
     assert bad not in flags
   assert cuda_build.sources() == ['epilogue.cu', 'splat.cu',
-                                  'splat_exact.cu']
+                                  'splat_exact.cu', 'wrap.cu']
   header = (cuda_build.CSRC_DIR / 'pixel.cuh').read_text()
   for intrinsic in ('__fadd_rn', '__fsub_rn', '__fmul_rn', '__fdiv_rn',
                     '__fsqrt_rn'):
@@ -101,6 +101,7 @@ def test_kernel_build_flags():
   for intrinsic in ('__fadd_rn', '__fsub_rn', '__fmul_rn', '__frcp_rn',
                     '__fsqrt_rn'):
     assert intrinsic in epilogue
+  assert '__fmul_rn' in (cuda_build.CSRC_DIR / 'wrap.cu').read_text()
 
 
 def test_library_name_follows_the_source():

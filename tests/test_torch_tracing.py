@@ -197,12 +197,17 @@ def test_served_calls_record_their_spans():
   assert tracing.count('serve.captures') == 1
   assert tracing.count('serve.replays') == 2
   # The generator ran 4 steps (2 eager, 2 replayed; the capture's
-  # convolutions taken back) and the poses once, every convolution in
-  # channels_last memory.
+  # convolutions and pads taken back) and the poses once, every
+  # convolution in channels_last memory; each circular convolution pads
+  # its input, and a partial one its mask too.
   convs = sum(isinstance(m, (layers._Conv, layers.Conv2DTranspose))
               for m in model.model.modules())
   assert tracing.count('generator.convs') == 5 * convs > 0
   assert tracing.count('generator.nchw_convs') == 0
+  wraps = sum((2 if isinstance(m, layers.PartialConv) else 1)
+              for m in model.model.modules()
+              if isinstance(m, layers._Conv) and m.circular and m.fused_pad)
+  assert tracing.count('generator.wrap_pads') == 5 * wraps > 0
 
 
 def test_a_train_step_records_its_parts():
